@@ -1,17 +1,32 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Phases, each of which raises (and so exits non-zero) on failure:
-  1. card: name and power limit, torch/CUDA versions, kernel build time;
-  2. every CUDA kernel against its plain PyTorch version on the card, at the
-     reference's sweep shapes and at the serving shapes;
-  3. times (median of CUDA-event-timed runs, L2 flushed before each) of each
+  1. card: name and power limit, torch/CUDA versions; the three CUDA kernels
+     built together, one nvcc per source, each in its own thread;
+  2. the paged-attention kernel against its plain PyTorch version on the card,
+     at the reference's sweep shapes and at the serving shapes;
+  3. times (median of CUDA-event-timed runs, L2 flushed before each) of that
      kernel, its plain version and a library yardstick, beside the byte bound;
-  4. the main path at full width: ``repro_torch.launch.serve`` serving
+  4. the serving path at full width: ``repro_torch.launch.serve`` serving
      gemma3-1b (26 layers, d_model 1152) with random bf16 weights, KV pages
      preempted into pinned host memory and promoted back; the kernel's launch
      count must equal decode steps x layers; a torch.profiler breakdown of 20
      more steps of the same request mix; then decode steps with the kernel and
-     with the plain version from the same pools.
+     with the plain version from the same pools;
+  5. the flash-attention kernel against its plain version: the reference's
+     sweep (fp32 and bf16, causal and not) and the prefill shapes of
+     gemma3-1b and zamba2-1.2b, in fp32 and in bf16;
+  6. the Mamba2 SSD kernel against its plain versions: the reference's sweep
+     and zamba2-1.2b's shape;
+  7. times of both kernels, their plain versions and, for attention, SDPA as a
+     yardstick, beside the bound at the path shapes;
+  8. the prefill path at full width for gemma3-1b and then zamba2-1.2b:
+     ``forward(collect_kv=True, last_only=True)`` at B=2 x 2048 tokens with
+     the kernels, checked launch counts per forward, then 16 ``decode_step``s
+     from the prefill's caches; a torch.profiler breakdown of one forward;
+     every kernel call of one more prefill held against its plain version on
+     the same inputs; the same prefill with the plain versions swapped in,
+     compared (and, for zamba2, plain against plain at another SSD chunk).
 The last two lines are a JSON ``kernels`` record and a JSON result line.
 
 Float32 matmuls run in full precision (TF32 off), so fp32 comparisons on the
@@ -22,6 +37,7 @@ from __future__ import annotations
 
 import functools
 import json
+from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
@@ -32,7 +48,12 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, bf16 dense on the tensor cores
 WINDOW_GLOBAL = 2**30
+# A bf16 output is held at |kernel - plain| <= BF16_RTOL * |plain| + BF16_ATOL:
+# both sides compute in fp32 and round once to bf16 (8-bit significand), so
+# they differ by at most one bf16 ulp, 2^-7 = 7.8e-3 of |plain|.
+BF16_RTOL, BF16_ATOL = 8e-3, 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -89,9 +110,29 @@ def time_ms(fn, flush: torch.Tensor, runs: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def kernel_modules() -> dict:
+    """Each kernel's wrapper module, which holds its `launches` count."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd as sm
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    return {"paged_attention": pa, "flash_attention": fa, "mamba2_ssd": sm}
+
+
+def zero_counts() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
 # ----------------------------------------------------------------------------- phases
-def card(pa):
+def card():
     phase("card")
+    from repro_torch.kernels import _nvcc
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -99,11 +140,15 @@ def card(pa):
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    path, log = pa.build()
-    print(f"built {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    sources = [mod.SOURCE for mod in kernel_modules().values()]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(_nvcc.build, sources))
+    print(f"built {', '.join(path.name for path, _ in built)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for path, log in built:
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas {path.stem}: {line.strip()}")
     return smi
 
 
@@ -170,24 +215,10 @@ def timings(ops, ref, flush):
     return rows
 
 
-def profile_steps(eng, args, n_steps: int = 20) -> None:
-    """Where a serving step's time goes: the same request mix again, the first
-    `n_steps` steps under torch.profiler; device busy time by kernel name and
-    the device's idle share of the wall time."""
+def print_profile(prof, wall_us: float, what: str) -> None:
+    """Device busy time by kernel name and the device's idle share of `wall_us`."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    g = torch.Generator().manual_seed(args.seed + 1)
-    for _ in range(args.requests):
-        prompt = torch.randint(0, eng.cfg.vocab_size, (args.prompt_len,), generator=g)
-        eng.submit(prompt.tolist(), max_new_tokens=args.max_new)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -195,18 +226,45 @@ def profile_steps(eng, args, n_steps: int = 20) -> None:
             by_name[e.name] = (total + e.device_time_total, count + 1)
     busy_us = sum(t for t, _ in by_name.values())
     if busy_us == 0:
-        print(f"profile of {n_steps} steps: the profiler recorded no device time")
+        print(f"profile of {what}: the profiler recorded no device time")
         return
-    print(f"profile of {n_steps} steps: wall {wall_us / 1e3:.2f} ms, device busy "
+    print(f"profile of {what}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms, device idle share {1 - busy_us / wall_us:.3f}")
     for name, (t, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {t / 1e3:9.3f} ms {t / busy_us:6.1%} x{count:5d}  {name[:90]}")
 
 
+def profiled(fn, what: str) -> None:
+    """Run `fn` once under torch.profiler and print where the device time went."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    print_profile(prof, wall_us, what)
+
+
+def profile_steps(eng, args, n_steps: int = 20) -> None:
+    """Where a serving step's time goes: the same request mix again, the first
+    `n_steps` steps under torch.profiler."""
+    g = torch.Generator().manual_seed(args.seed + 1)
+    for _ in range(args.requests):
+        prompt = torch.randint(0, eng.cfg.vocab_size, (args.prompt_len,), generator=g)
+        eng.submit(prompt.tolist(), max_new_tokens=args.max_new)
+
+    def steps():
+        for _ in range(n_steps):
+            eng.step()
+
+    profiled(steps, f"{n_steps} steps")
+
+
 def main_path(ops, ref):
     phase("main path: gemma3-1b full width, tiered paged KV")
     from repro_torch.core import emucxl
-    from repro_torch.kernels.paged_attention import paged_attention as pa
     from repro_torch.launch import serve
     import repro_torch.serving.engine as engine_mod
     import repro_torch.serving.paged_decode as pd_mod
@@ -233,7 +291,7 @@ def main_path(ops, ref):
 
     engine_mod.paged_decode_step = observed
     peak_remote, remote_recs, step_ms = 0, 0, []
-    pa.launches = 0
+    zero_counts()
     t_run = time.perf_counter()
     try:
         steps = 0
@@ -252,7 +310,8 @@ def main_path(ops, ref):
     finally:
         engine_mod.paged_decode_step = decode
     wall = time.perf_counter() - t_run
-    launches = pa.launches
+    counts = read_counts()
+    launches = counts["paged_attention"]
     stats = eng.tier_stats()
     generated = sum(len(r.generated) for r in eng.requests.values())
     print(f"steps {steps}, decode batches {eng.decode_batches}, kernel launches {launches}, "
@@ -266,6 +325,8 @@ def main_path(ops, ref):
     check(launches > 0, "the main path never launched the paged_attention kernel")
     check(launches == eng.decode_batches * cfg.num_layers,
           f"kernel launches {launches} != decode batches x layers")
+    check(counts["flash_attention"] == counts["mamba2_ssd"] == 0,
+          f"the serving path launched a prefill kernel: {counts}")
     check(all(bool(f) for f in finite), "non-finite logits on the main path")
     print(f"serving: {steps / wall:.2f} steps/s, {generated / wall:.2f} generated tokens/s, "
           f"median step {statistics.median(step_ms):.2f} ms, wall {wall:.2f} s")
@@ -300,31 +361,383 @@ def main_path(ops, ref):
     return launches
 
 
+# ------------------------------------------------------------------ prefill kernels
+def flash_inputs(B, S, N, K, hd, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = (torch.randn((B, S, N, hd), generator=g, device="cuda") * 0.5).to(dtype)
+    k = (torch.randn((B, S, K, hd), generator=g, device="cuda") * 0.5).to(dtype)
+    v = (torch.randn((B, S, K, hd), generator=g, device="cuda") * 0.5).to(dtype)
+    return q, k, v
+
+
+def ssd_inputs(B, T, H, P, N, dtype, seed):
+    """The reference sweep's draws (tests/test_kernels.py:109), x/B/C in `dtype`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((B, T, H, P), generator=g, device="cuda") * 0.5).to(dtype)
+    dt = torch.rand((B, T, H), generator=g, device="cuda") * (2.0 - 1e-3) + 1e-3
+    A = -(torch.rand((H,), generator=g, device="cuda") * 7.5 + 0.5)
+    Bm = (torch.randn((B, T, N), generator=g, device="cuda") * 0.5).to(dtype)
+    C = (torch.randn((B, T, N), generator=g, device="cuda") * 0.5).to(dtype)
+    D = torch.randn((H,), generator=g, device="cuda") * 0.05
+    h0 = torch.randn((B, H, P, N), generator=g, device="cuda") * 0.05
+    return x, dt, A, Bm, C, D, h0
+
+
+# gemma3-1b: 4 query heads over 1 KV head at hd 256, sliding 512 and global;
+# zamba2-1.2b's shared attention: 32 heads at hd 64. B=2 x 2048 as on the path.
+FLASH_PATH = {"gemma3_global": ((2, 2048, 4, 1, 256), WINDOW_GLOBAL),
+              "gemma3_sliding": ((2, 2048, 4, 1, 256), 512),
+              "zamba2": ((2, 2048, 32, 32, 64), WINDOW_GLOBAL)}
+SSD_PATH = (2, 2048, 64, 64, 64)     # zamba2-1.2b: B, T, H, P, N at chunk 32
+
+
+def flash_vs_plain():
+    """Max |kernel - plain| over the reference sweep and the path shapes."""
+    phase("flash attention: kernel vs plain version")
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    cases = []   # (shape, window, causal, dtype, atol, rtol)
+    # tests/test_kernels.py:27: fp32 at 2e-5, bf16 at 2e-2 (the reference's).
+    for shape in [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 384, 4, 1, 128),
+                  (2, 200, 2, 2, 32)]:
+        for window in (WINDOW_GLOBAL, 64):
+            cases.append((shape, window, True, torch.float32, 2e-5, 0.0))
+            cases.append((shape, window, True, torch.bfloat16, 2e-2, 0.0))
+    cases.append(((2, 128, 4, 4, 64), WINDOW_GLOBAL, False, torch.float32, 2e-5, 0.0))
+    # The path's shapes, each template instantiation it runs: fp32 at 2e-5, and
+    # bf16 within one bf16 ulp of |plain|. Outputs there are ~0.01-0.02, so a
+    # flat 2e-2 would not tell a dropped k tile from rounding.
+    for shape, window in FLASH_PATH.values():
+        cases.append((shape, window, True, torch.float32, 2e-5, 0.0))
+        cases.append((shape, window, True, torch.bfloat16, BF16_ATOL, BF16_RTOL))
+    worst = 0.0
+    for i, (shape, window, causal, dtype, atol, rtol) in enumerate(cases):
+        q, k, v = flash_inputs(*shape, dtype, seed=i)
+        scale = shape[-1] ** -0.5
+        out = flash_attention(q, k, v, window=window, scale=scale, causal=causal)
+        torch.cuda.synchronize()
+        expect = attention_ref(q, k, v, window, scale=scale, causal=causal).float()
+        diff = (out.float() - expect).abs()
+        err = diff.max().item()
+        within = bool((diff <= atol + rtol * expect.abs()).all())
+        tol = f"{atol:g}" + (f" + {rtol:g} |plain|" if rtol else "")
+        print("  B{} S{} N{} K{} hd{}".format(*shape) + f" window {window} causal {causal} "
+              f"{str(dtype).removeprefix('torch.')}: max abs err {err:.3e}, max |plain| "
+              f"{expect.abs().max().item():.3e} (tol {tol})")
+        check(within, f"flash_attention disagrees with its plain version beyond {tol}")
+        worst = max(worst, err)
+        del q, k, v, out, expect, diff
+    print(f"kernels: flash_attention max abs err {worst:.3e}")
+    return worst
+
+
+def ssd_vs_plain():
+    """Max |kernel - plain| of y and the final state: the reference's sweep
+    against the step-by-step oracle, the path shape against the plain chunked
+    form (both fp32 arithmetic; atol 5e-4, the reference's)."""
+    phase("mamba2 ssd: kernel vs plain version")
+    from repro_torch.kernels.mamba2_ssd.ops import _ssd_chunked, ssd
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_ref
+
+    cases = [((2, 64, 2, 16, 8), 16, torch.float32, ssd_ref),
+             ((1, 45, 4, 8, 16), 16, torch.float32, ssd_ref),
+             ((1, 45, 4, 8, 16), 16, torch.bfloat16, ssd_ref),
+             (SSD_PATH, 32, torch.bfloat16,
+              lambda *a: _ssd_chunked(*a, chunk=32))]
+    worst = 0.0
+    for i, (shape, chunk, dtype, plain) in enumerate(cases):
+        args = ssd_inputs(*shape, dtype, seed=100 + i)
+        y, h = ssd(*args, impl="pallas", chunk=chunk)
+        torch.cuda.synchronize()
+        y_ref, h_ref = plain(*args)
+        err = max((y - y_ref).abs().max().item(), (h - h_ref).abs().max().item())
+        print("  B{} T{} H{} P{} N{}".format(*shape) + f" chunk {chunk} "
+              f"{str(dtype).removeprefix('torch.')}: max abs err {err:.3e} (tol 5e-4)")
+        check(err <= 5e-4, f"ssd kernel disagrees with its plain version: {err} > 5e-4")
+        worst = max(worst, err)
+    print(f"kernels: mamba2_ssd max abs err {worst:.3e}")
+    return worst
+
+
+def flash_bound_ms(B, S, N, K, hd, window, elem_bytes, peak):
+    """Least time: flops 4 * hd per unmasked (q, k) pair and head over the
+    dtype's peak; bytes q, k, v read and the output written once."""
+    pairs = sum(q - max(0, q - window + 1) + 1 for q in range(S))
+    t_ops = 4 * B * N * hd * pairs / peak * 1e3
+    t_bytes = (2 * B * S * N * hd + 2 * B * S * K * hd) * elem_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssd_bound_ms(B, T, H, P, N, chunk, elem_bytes):
+    """Least time: the chunked algorithm's fp32 flops per (b, head, chunk) over
+    the fp32 peak, counting only the c(c+1)/2 causal pairs s <= t of the
+    intra-chunk products (C B^T over N, scores x over P), c(c+1)(N + P), plus
+    4cPN for C H^T and the state update; bytes x, dt, B, C, A, D and the state
+    read once, y and the state written once."""
+    nc = -(-T // chunk)
+    flops = B * H * nc * (chunk * (chunk + 1) * (N + P) + 4 * chunk * P * N)
+    bytes_ = (B * T * H * P * elem_bytes + B * T * H * 4 + 2 * B * T * N * elem_bytes
+              + 2 * H * 4 + 2 * B * H * P * N * 4 + B * T * H * P * 4)
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def prefill_timings(flush):
+    """Both prefill kernels at the path shapes: kernel, plain version, SDPA for
+    attention (on K/V repeated to N heads and laid out (B, N, S, hd), untimed),
+    and the bound."""
+    phase("prefill kernel times")
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mamba2_ssd.ops import _ssd_chunked, ssd
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for label, ((B, S, N, K, hd), window) in FLASH_PATH.items():
+        q, k, v = flash_inputs(B, S, N, K, hd, torch.bfloat16, seed=200)
+        scale = hd ** -0.5
+        ms = time_ms(lambda: flash_attention(q, k, v, window=window, scale=scale), flush)
+        plain = time_ms(lambda: attention_ref(q, k, v, window, scale=scale), flush)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(N // K, 2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(N // K, 2).transpose(1, 2).contiguous()
+        if window >= S:
+            lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale), flush)
+        else:
+            pos = torch.arange(S, device="cuda")
+            mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+            lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale), flush)
+        bound, bound_by = flash_bound_ms(B, S, N, K, hd, window, 2, BF16_FLOPS_PER_S)
+        rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                       "bound_by": bound_by}
+        print(f"  flash {label}: B{B} S{S} N{N} K{K} hd{hd} window {window} bf16: "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+              f"{bound_by} bound {bound:.4f} ms")
+        del q, k, v, qt, kt, vt
+    args = ssd_inputs(*SSD_PATH, torch.bfloat16, seed=201)
+    ms = time_ms(lambda: ssd(*args, impl="pallas"), flush)
+    plain = time_ms(lambda: _ssd_chunked(*args, chunk=32), flush)
+    bound, bound_by = ssd_bound_ms(*SSD_PATH, 32, 2)
+    rows["ssd_zamba2"] = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
+                          "bound_by": bound_by}
+    print("  ssd zamba2: B{} T{} H{} P{} N{}".format(*SSD_PATH) + f" chunk 32 x/B/C bf16: "
+          f"kernel {ms:.4f} ms, plain chunked {plain:.4f} ms, no single PyTorch call, "
+          f"{bound_by} bound {bound:.4f} ms")
+    return rows
+
+
+# ------------------------------------------------------------------ prefill path
+def decode_state_from_prefill(tf, params, cfg, caches, B, S, max_len):
+    """A decode state whose caches hold the prefill's: K/V copied into the
+    first S positions, the Mamba2 states taken as they are."""
+    state = tf.init_decode_state(params, cfg, B, max_len)
+    state["lengths"].fill_(S)
+    kv_key = "shared_kv" if cfg.family == "hybrid" else "kv"
+    for dst, src in zip(state[kv_key], caches[kv_key], strict=True):
+        dst[:, :, :S] = src
+    if cfg.family == "hybrid":
+        state["mamba"] = caches["mamba"]
+    return state
+
+
+def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
+    """Prefill B=2 x 2048 tokens at full width, then 16 cached decode steps.
+    Returns the launch counts of the kernel run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mamba2_ssd.ops import _ssd_chunked
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import transformer as tf
+
+    phase(f"prefill path: {arch} full width, prefill + cached decode")
+    cfg = get_config(arch)
+    B, S, steps = 2, 2048, 16
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    print(f"built {cfg.name} in {time.perf_counter() - t0:.2f} s: L{cfg.num_layers} "
+          f"D{cfg.d_model} N{cfg.num_heads} K{cfg.num_kv_heads} hd{cfg.resolved_head_dim} "
+          f"F{cfg.d_ff} V{cfg.vocab_size}" + (f" ssm H{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim}"
+                                                f" P{cfg.ssm_head_dim} N{cfg.ssm_state}"
+                                                if cfg.family == "hybrid" else ""))
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), dtype=torch.int32, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    prompt = toks[:, :S]
+    opts = tf.ModelOptions(attn_impl="flash", ssd_impl="pallas")
+
+    def prefill():
+        return tf.forward(params, cfg, prompt, opts, collect_kv=True, last_only=True)
+
+    zero_counts()
+    fwd_ms = []
+    for _ in range(n_forwards):
+        ts = time.perf_counter()
+        logits, _, caches = prefill()
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - ts) * 1e3)
+    counts = read_counts()
+    print(f"{n_forwards} forwards: launches {counts}, forward ms {[round(t, 2) for t in fwd_ms]}")
+    for name, n in per_forward.items():
+        check(counts[name] == n * n_forwards,
+              f"{name} launches {counts[name]} != {n} per forward x {n_forwards}")
+    for name in counts.keys() - per_forward.keys():
+        check(counts[name] == 0, f"the prefill path launched {name}: {counts}")
+    check(tuple(logits.shape) == (B, 1, cfg.padded_vocab), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()), "non-finite prefill logits")
+    median_fwd = statistics.median(fwd_ms[1:])
+    print(f"prefill B{B} x {S}: median forward {median_fwd:.2f} ms (first {fwd_ms[0]:.2f} ms), "
+          f"{B * S / median_fwd * 1e3:.0f} prompt tokens/s")
+
+    state = decode_state_from_prefill(tf, params, cfg, caches, B, S, S + steps)
+    step_ms, finite = [], []
+    for t in range(S, S + steps):
+        ts = time.perf_counter()
+        step_logits, state = tf.decode_step(params, cfg, state, toks[:, t:t + 1], opts)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        finite.append(bool(torch.isfinite(step_logits[:, :cfg.vocab_size]).all()))
+    check(all(finite), "non-finite decode logits")
+    check(int(state["lengths"][0]) == S + steps, "decode did not advance the lengths")
+    print(f"decode {steps} steps x B{B} from the prefill caches: median step "
+          f"{statistics.median(step_ms):.2f} ms (first {step_ms[0]:.2f} ms), logits finite")
+    profiled(prefill, f"one {arch} prefill forward")
+
+    # Each kernel call of one more prefill, held against its plain version on
+    # the same inputs, the model's own activations. Flash: element by element
+    # within one bf16 ulp, BF16_RTOL |plain| + BF16_ATOL max(1, max |plain|).
+    # The SSD: at phase 6's tolerance taken relative to the largest |value| of
+    # the plain output (the zamba2 states reach ~1e7 with random weights). Its
+    # plain chunked form evaluated in fp64: the model's dt reaches ~500, where
+    # fp32 differences of L = A * cumsum(dt) lose digits, so the fp32 plain
+    # form is itself off by ~1e-3 (printed beside).
+    kernel_flash, kernel_ssd = attn_mod.flash_attention, m2.ssd
+    worst = {"flash_attention": 0.0, "flash share of tol": 0.0, "mamba2_ssd": 0.0,
+             "plain fp32 ssd": 0.0, "max dt": 0.0}
+
+    def rel_err(out, ref):
+        return (out.double() - ref.double()).abs().max().item() / max(
+            1.0, ref.double().abs().max().item())
+
+    def flash_checked(q, k, v, *, window, scale, causal=True):
+        out = kernel_flash(q, k, v, window=window, scale=scale, causal=causal)
+        ref = attention_ref(q, k, v, window, scale=scale, causal=causal).float()
+        tol = BF16_RTOL * ref.abs() + BF16_ATOL * max(1.0, ref.abs().max().item())
+        worst["flash share of tol"] = max(worst["flash share of tol"],
+                                          ((out.float() - ref).abs() / tol).max().item())
+        worst["flash_attention"] = max(worst["flash_attention"], rel_err(out, ref))
+        return out
+
+    def ssd_checked(*args, impl="chunked", chunk=32):
+        y, h = kernel_ssd(*args, impl=impl, chunk=chunk)
+        y64, h64 = _ssd_chunked(*(t.double() for t in args), chunk)
+        y32, h32 = _ssd_chunked(*args, chunk)
+        worst["mamba2_ssd"] = max(worst["mamba2_ssd"], rel_err(y, y64), rel_err(h, h64))
+        worst["plain fp32 ssd"] = max(worst["plain fp32 ssd"], rel_err(y32, y64),
+                                      rel_err(h32, h64))
+        worst["max dt"] = max(worst["max dt"], args[1].max().item())
+        return y, h
+
+    attn_mod.flash_attention, m2.ssd = flash_checked, ssd_checked
+    try:
+        prefill()
+        torch.cuda.synchronize()
+    finally:
+        attn_mod.flash_attention, m2.ssd = kernel_flash, kernel_ssd
+    shown = [name for name in worst if name in per_forward or
+             (name == "flash share of tol" and "flash_attention" in per_forward) or
+             (name in ("plain fp32 ssd", "max dt") and "mamba2_ssd" in per_forward)]
+    print("every kernel call of a prefill vs its plain version on the same inputs, max "
+          "|diff| / max(1, max |plain|), and flash's largest |diff| / tol: " +
+          ", ".join(f"{n} {worst[n]:.3e}" for n in shown))
+    check(worst["flash share of tol"] <= 1.0, "flash_attention disagrees on the path's inputs")
+    check(worst["mamba2_ssd"] <= 5e-4, "mamba2_ssd disagrees on the path's inputs")
+
+    # The whole prefill with the plain versions in place of the kernels. The
+    # hybrid is compared a second time, plain against plain with the SSD
+    # summed in chunks of 16: random weights and no pre-norm before its Mamba2
+    # blocks make it amplify any rounding difference, and this shows how much.
+    def plain_prefill(ssd_chunk=32):
+        attn_mod.flash_attention = lambda q, k, v, *, window, scale, causal=True: \
+            attention_ref(q, k, v, window, scale=scale, causal=causal)
+        m2.ssd = lambda *a, impl="chunked", chunk=32: _ssd_chunked(*a, ssd_chunk)
+        try:
+            before = read_counts()
+            out = prefill()
+            torch.cuda.synchronize()
+            check(read_counts() == before, "the plain prefill launched a kernel")
+        finally:
+            attn_mod.flash_attention, m2.ssd = kernel_flash, kernel_ssd
+        return out
+
+    def compare(what, one, other):
+        (a, _, ca), (b, _, cb) = one, other
+        a, b = a[..., :cfg.vocab_size], b[..., :cfg.vocab_size]
+        check(bool(torch.isfinite(b).all()), f"non-finite logits: {what}")
+        kv_key = "shared_kv" if cfg.family == "hybrid" else "kv"
+        kv_diff = max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(ca[kv_key], cb[kv_key], strict=True))
+        line = (f"prefill {what}: max |logit diff| {(a - b).abs().max().item():.4e}, argmax "
+                f"agreement {(a.argmax(-1) == b.argmax(-1)).float().mean().item():.3f}, "
+                f"max |K/V cache diff| {kv_diff:.4e}")
+        if cfg.family == "hybrid":
+            ssd_diff = (ca["mamba"]["ssd"] - cb["mamba"]["ssd"]).abs().max().item()
+            line += (f", max |SSD state diff| {ssd_diff:.4e} of max |SSD state| "
+                     f"{cb['mamba']['ssd'].abs().max().item():.4e}")
+        print(line)
+
+    plain = plain_prefill()
+    compare("kernels vs plain versions", (logits, None, caches), plain)
+    if cfg.family == "hybrid":
+        compare("plain vs plain with SSD chunk 16", plain, plain_prefill(ssd_chunk=16))
+    return counts
+
+
+def kernel_record(name, source, replaces, launches, worst, row, **extra):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": worst, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"], **extra}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels.paged_attention import ops, ref
-    from repro_torch.kernels.paged_attention import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = card(pa)
+    smi = card()
     worst = kernel_vs_plain(ops, ref)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")   # > 50 MB L2
     rows = timings(ops, ref, flush)
-    del flush
     launches = main_path(ops, ref)
-    serving = rows["serving"]
-    print(json.dumps({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention/paged_attention.py:93",
-        "launches": launches, "max_abs_err": worst, "ms": serving["ms"],
-        "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
-        "bound_by": serving["bound_by"], "library_ms": serving["library_ms"],
-        "long_context": rows["long"]}]}))
+    worst_flash = flash_vs_plain()
+    worst_ssd = ssd_vs_plain()
+    prefill_rows = prefill_timings(flush)
+    del flush
+    gemma = prefill_path("gemma3-1b", {"flash_attention": 26})
+    zamba = prefill_path("zamba2-1.2b", {"flash_attention": 6, "mamba2_ssd": 38})
+    print(json.dumps({"kernels": [
+        kernel_record("paged_attention",
+                      "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+                      "src/repro/kernels/paged_attention/paged_attention.py:93",
+                      launches, worst, rows["serving"], long_context=rows["long"]),
+        kernel_record("flash_attention",
+                      "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention/flash_attention.py:107",
+                      gemma["flash_attention"] + zamba["flash_attention"], worst_flash,
+                      prefill_rows["gemma3_global"],
+                      shapes={k: prefill_rows[k] for k in FLASH_PATH}),
+        kernel_record("mamba2_ssd",
+                      "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
+                      "src/repro/kernels/mamba2_ssd/mamba2_ssd.py:82",
+                      zamba["mamba2_ssd"], worst_ssd, prefill_rows["ssd_zamba2"]),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

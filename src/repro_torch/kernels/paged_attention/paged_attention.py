@@ -1,10 +1,9 @@
-"""CUDA paged-attention decode kernel: build, ctypes binding, and launch wrapper.
+"""CUDA paged-attention decode kernel: ctypes binding and launch wrapper.
 
 The kernel (``csrc/paged_attention.cu``) is plain CUDA C++ for ``sm_90a`` with
-an ``extern "C"`` entry point. ``build()`` compiles it with ``nvcc`` into the
-repository's git-ignored ``build/`` directory at first use, named by a hash of
-the source and flags so an edit rebuilds, and ``ctypes`` loads the result.
-Nothing is built or loaded at import time.
+an ``extern "C"`` entry point, built by ``kernels/_nvcc.py`` into the
+repository's git-ignored ``build/`` at its first launch. Nothing is built or
+loaded at import time.
 
 ``paged_attention`` checks its inputs, allocates the output with
 ``torch.empty``, and launches on the current CUDA stream without
@@ -13,77 +12,23 @@ synchronising. ``launches`` counts the launches this process made.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import operator
-import os
-import shutil
-import subprocess
 from pathlib import Path
-from typing import Tuple
 
 import torch
 
+from repro_torch.kernels._nvcc import F32, I32, PTR, Kernel
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# q, k_pages, v_pages, block_table, lengths, out; B, N, K, hd, page, max_pages,
+# window; scale; q_is_bf16; stream
+KERNEL = Kernel(SOURCE, "paged_attention_fwd", [*[PTR] * 6, *[I32] * 7, F32, I32, PTR])
 
 HEAD_DIMS = (32, 64, 128, 256)
 PAGE_SIZES = (8, 16, 32)
 GROUPS = (1, 2, 4, 8)
 
 launches = 0
-_fn = None
-_err_str = None
-
-
-def _nvcc() -> str:
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"    # the toolkit's standard install prefix
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build() -> Tuple[Path, str]:
-    """Compile the kernel if this source has not been built; returns the
-    shared library's path and nvcc's output (empty when it was cached)."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"paged_attention_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)     # atomic: a concurrent loader never sees half a file
-    return lib, proc.stdout + proc.stderr
-
-
-def _load():
-    global _fn, _err_str
-    if _fn is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        fn = lib.paged_attention_fwd
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        # q, k_pages, v_pages, block_table, lengths, out; B, N, K, hd, page,
-        # max_pages, window; scale; q_is_bf16; stream
-        fn.argtypes = [*[ptr] * 6, *[i32] * 7, ctypes.c_float, i32, ptr]
-        fn.restype = ctypes.c_int
-        err_str = lib.paged_attention_error_string
-        err_str.argtypes = [ctypes.c_int]
-        err_str.restype = ctypes.c_char_p
-        _fn, _err_str = fn, err_str
-    return _fn
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -119,16 +64,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     _check(page in PAGE_SIZES, f"page size {page} not in {PAGE_SIZES}")
     _check(window >= 1, f"window {window} must be >= 1")
     out = torch.empty_like(q)
-    fn = _load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 B, N, K, hd, page, block_table.shape[1], window, float(scale),
-                 int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"paged_attention launch failed: CUDA error {err} "
-            f"({_err_str(err).decode()})")
+        KERNEL.launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                      block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                      B, N, K, hd, page, block_table.shape[1], window, float(scale),
+                      int(q.dtype == torch.bfloat16), stream)
     launches += 1
     return out

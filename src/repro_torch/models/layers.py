@@ -35,6 +35,10 @@ def zeros(shape, dtype=torch.float32, device="cuda") -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
+def ones(shape, dtype=torch.float32, device="cuda") -> torch.Tensor:
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
 # ----------------------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in fp32 with (1 + scale) parameterization (gemma-style zero-init safe)."""

@@ -15,9 +15,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention.ops import paged_attention
-from repro_torch.models import layers as ll
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import rms_norm
 
 
 def paged_decode_step(
@@ -35,7 +35,13 @@ def paged_decode_step(
     Unlike the reference, whose ``lax.scan`` donates the pools and returns new
     ones, this writes the new token's K/V into ``k_pool``/``v_pool`` in place
     and returns the same tensors, so the engine's call site reads the same."""
-    tf.require_dense(cfg)
+    tf.require_ported(cfg)
+    if cfg.family != "dense" or cfg.input_mode != "tokens":
+        # The reference's paged decode is for attention models (its assert on
+        # the family); the port's reads params["stack"] and embeds tokens.
+        raise NotImplementedError(
+            f"{cfg.name}: paged decode serves dense token models; family {cfg.family!r} "
+            f"with {cfg.input_mode} input decodes through models.transformer.decode_step")
     B = inputs.shape[0]
     L, slots, page, K, hd = k_pool.shape
     h = tf.embed_inputs(params, cfg, inputs)
@@ -46,33 +52,18 @@ def paged_decode_step(
     slot_of = block_table[torch.arange(B, device=block_table.device), page_idx].long()
     kv_lengths = lengths + 1
     scale = float(cfg.resolved_head_dim) ** -0.5
-    stack = params["stack"]
     for layer in range(L):
-        p_attn = {name: w[layer] for name, w in stack["attn"].items()}
-        x = rms_norm(h, stack["ln1"][layer])
-        q = torch.einsum("bsd,dnh->bsnh", x, p_attn["wq"])
-        k_new = torch.einsum("bsd,dkh->bskh", x, p_attn["wk"])
-        v_new = torch.einsum("bsd,dkh->bskh", x, p_attn["wv"])
-        if cfg.qk_norm:
-            q = rms_norm(q, p_attn["q_norm"])
-            k_new = rms_norm(k_new, p_attn["k_norm"])
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+        p = tf._layer(params["stack"], layer)
+        x = rms_norm(h, p["ln1"])
+        q, k_new, v_new = attn._project_qkv(p["attn"], x, positions, cfg.rope_theta,
+                                            cfg.qk_norm)
         # write the new token's K/V into its page slot (in place)
         k_pages, v_pages = k_pool[layer], v_pool[layer]
         k_pages[slot_of, offset] = k_new[:, 0].to(k_pages.dtype)
         v_pages[slot_of, offset] = v_new[:, 0].to(v_pages.dtype)
         out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages, block_table,
                               kv_lengths, int(windows[layer]), scale=scale)
-        a_out = torch.einsum("bnh,nhd->bd", out.to(x.dtype), p_attn["wo"])
-        if cfg.post_norms:
-            a_out = rms_norm(a_out[:, None], stack["post_ln1"][layer])[:, 0]
-        h = h + a_out[:, None]
-        x2 = rms_norm(h, stack["ln2"][layer])
-        f_out = ll.mlp({name: w[layer] for name, w in stack["mlp"].items()}, x2,
-                       cfg.mlp_activation)
-        if cfg.post_norms:
-            f_out = rms_norm(f_out, stack["post_ln2"][layer])
-        h = h + f_out
+        a_out = torch.einsum("bnh,nhd->bd", out.to(x.dtype), p["attn"]["wo"])
+        h = tf._finish_block(p, h, a_out[:, None], cfg)
     logits = tf.unembed(params, cfg, h)[:, 0]
     return logits, k_pool, v_pool
