@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Phases, each of which raises (and so exits non-zero) on failure:
-  1. card: name and power limit, torch/CUDA versions; the three CUDA kernels
+Phases, each of which raises (and so exits non-zero) on failure, each
+printed with the wall time of the phase before it:
+  1. card: name and power limit, torch/CUDA versions; the four CUDA kernels
      built together, one nvcc per source, each in its own thread;
   2. the paged-attention kernel against its plain PyTorch version on the card,
      at the reference's sweep shapes and at the serving shapes;
@@ -18,15 +19,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
      gemma3-1b and zamba2-1.2b, in fp32 and in bf16;
   6. the Mamba2 SSD kernel against its plain versions: the reference's sweep
      and zamba2-1.2b's shape;
-  7. times of both kernels, their plain versions and, for attention, SDPA as a
-     yardstick, beside the bound at the path shapes;
-  8. the prefill path at full width for gemma3-1b and then zamba2-1.2b:
+  7. the WKV6 kernel against its plain versions: the reference's sweep and
+     rwkv6-3b's shape;
+  8. times of the three prefill kernels, their plain versions and, for
+     attention, SDPA as a yardstick, beside the bound at the path shapes;
+  9. the prefill path at full width for gemma3-1b, zamba2-1.2b and then
+     rwkv6-3b, each model freed before the next is built:
      ``forward(collect_kv=True, last_only=True)`` at B=2 x 2048 tokens with
      the kernels, checked launch counts per forward, then 16 ``decode_step``s
      from the prefill's caches; a torch.profiler breakdown of one forward;
      every kernel call of one more prefill held against its plain version on
      the same inputs; the same prefill with the plain versions swapped in,
-     compared (and, for zamba2, plain against plain at another SSD chunk).
+     compared (for zamba2 also plain against plain at another SSD chunk; for
+     rwkv6-3b within stated bounds on the logits and the WKV states).
 The last two lines are a JSON ``kernels`` record and a JSON result line.
 
 Float32 matmuls run in full precision (TF32 off), so fp32 comparisons on the
@@ -35,7 +40,9 @@ card mean what they say.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gc
 import json
 from concurrent.futures import ThreadPoolExecutor
 import statistics
@@ -54,6 +61,17 @@ WINDOW_GLOBAL = 2**30
 # both sides compute in fp32 and round once to bf16 (8-bit significand), so
 # they differ by at most one bf16 ulp, 2^-7 = 7.8e-3 of |plain|.
 BF16_RTOL, BF16_ATOL = 8e-3, 1e-4
+# WKV6 kernel against its plain chunked form on the same inputs, relative to
+# the plain output's largest |value| with no floor at 1 (rwkv6-3b's y and
+# states sit near 1e-2): both do fp32 arithmetic on the same fp32 values,
+# summed in other orders (~1e-6 of the magnitude); a lost chunk is O(1).
+WKV_RTOL = 1e-4
+# rwkv6-3b's whole prefill in fp32, kernels against plain versions: the last
+# logits (|logit| ~ 5) absolutely, the WKV states relative to their largest
+# |value|. In bf16 a one-ulp rounding flip grows to O(1) over 32 layers of
+# random weights, so the bf16 comparison is printed beside the plain forms'
+# own spread and not bounded.
+RWKV_FP32_LOGIT_ATOL, RWKV_FP32_STATE_RTOL = 5e-3, 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -61,7 +79,14 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_CLOCK = {"start": time.perf_counter(), "phase": time.perf_counter()}
+
+
 def phase(name: str) -> None:
+    """Start phase `name`, printing the wall time of the one before it."""
+    now = time.perf_counter()
+    print(f"   [{now - _CLOCK['phase']:.1f} s; {now - _CLOCK['start']:.1f} s in all]")
+    _CLOCK["phase"] = now
     print(f"== {name}", flush=True)
 
 
@@ -115,8 +140,9 @@ def kernel_modules() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd as sm
     from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as wk
 
-    return {"paged_attention": pa, "flash_attention": fa, "mamba2_ssd": sm}
+    return {"paged_attention": pa, "flash_attention": fa, "mamba2_ssd": sm, "wkv6": wk}
 
 
 def zero_counts() -> None:
@@ -325,7 +351,7 @@ def main_path(ops, ref):
     check(launches > 0, "the main path never launched the paged_attention kernel")
     check(launches == eng.decode_batches * cfg.num_layers,
           f"kernel launches {launches} != decode batches x layers")
-    check(counts["flash_attention"] == counts["mamba2_ssd"] == 0,
+    check(all(n == 0 for name, n in counts.items() if name != "paged_attention"),
           f"the serving path launched a prefill kernel: {counts}")
     check(all(bool(f) for f in finite), "non-finite logits on the main path")
     print(f"serving: {steps / wall:.2f} steps/s, {generated / wall:.2f} generated tokens/s, "
@@ -383,12 +409,31 @@ def ssd_inputs(B, T, H, P, N, dtype, seed):
     return x, dt, A, Bm, C, D, h0
 
 
+def wkv6_inputs(B, T, H, K, V, dtype, seed):
+    """The reference sweep's draws (tests/test_kernels.py:77), r/k/v in `dtype`;
+    w in [1e-5, 0.999], u and the initial state nonzero, all fp32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = (torch.randn((B, T, H, K), generator=g, device="cuda") * 0.5).to(dtype)
+    k = (torch.randn((B, T, H, K), generator=g, device="cuda") * 0.5).to(dtype)
+    v = (torch.randn((B, T, H, V), generator=g, device="cuda") * 0.5).to(dtype)
+    w = torch.rand((B, T, H, K), generator=g, device="cuda") * (0.999 - 1e-5) + 1e-5
+    u = torch.randn((H, K), generator=g, device="cuda") * 0.1
+    s0 = torch.randn((B, H, K, V), generator=g, device="cuda") * 0.1
+    return r, k, v, w, u, s0
+
+
+def max_rel(out, ref) -> float:
+    """Largest |out - ref| over the largest |ref|, with no floor."""
+    return ((out.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
+
+
 # gemma3-1b: 4 query heads over 1 KV head at hd 256, sliding 512 and global;
 # zamba2-1.2b's shared attention: 32 heads at hd 64. B=2 x 2048 as on the path.
 FLASH_PATH = {"gemma3_global": ((2, 2048, 4, 1, 256), WINDOW_GLOBAL),
               "gemma3_sliding": ((2, 2048, 4, 1, 256), 512),
               "zamba2": ((2, 2048, 32, 32, 64), WINDOW_GLOBAL)}
 SSD_PATH = (2, 2048, 64, 64, 64)     # zamba2-1.2b: B, T, H, P, N at chunk 32
+WKV_PATH = (2, 2048, 40, 64, 64)     # rwkv6-3b: B, T, H, K, V at chunk 16
 
 
 def flash_vs_plain():
@@ -460,6 +505,42 @@ def ssd_vs_plain():
     return worst
 
 
+def wkv6_vs_plain():
+    """The reference's sweep against the step-by-step oracle at its 3e-4, in
+    fp32 and with bf16 r/k/v, at both chunks the kernel has; the path's shape
+    (bf16 r/k/v) against the plain chunked form, at WKV_RTOL of its largest
+    |value|. Returns the largest |kernel - plain| of y and the state."""
+    phase("wkv6: kernel vs plain version")
+    from repro_torch.kernels.rwkv6_scan.ops import _wkv6_chunked, wkv6
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+
+    worst = 0.0
+    cases = [(shape, chunk, dtype) for shape in [(2, 64, 2, 16, 16), (1, 50, 4, 32, 32)]
+             for chunk in (16, 32) for dtype in (torch.float32, torch.bfloat16)]
+    for i, (shape, chunk, dtype) in enumerate(cases):
+        args = wkv6_inputs(*shape, dtype, seed=300 + i)
+        y, s = wkv6(*args, impl="pallas", chunk=chunk)
+        torch.cuda.synchronize()
+        y_ref, s_ref = wkv6_ref(*args)
+        err = max((y - y_ref).abs().max().item(), (s - s_ref).abs().max().item())
+        print("  B{} T{} H{} K{} V{}".format(*shape) + f" chunk {chunk} "
+              f"{str(dtype).removeprefix('torch.')}: max abs err {err:.3e} (tol 3e-4)")
+        check(err <= 3e-4, f"wkv6 kernel disagrees with its oracle: {err} > 3e-4")
+        worst = max(worst, err)
+    args = wkv6_inputs(*WKV_PATH, torch.bfloat16, seed=310)
+    y, s = wkv6(*args, impl="pallas")
+    torch.cuda.synchronize()
+    y_ref, s_ref = _wkv6_chunked(*args, chunk=16)
+    err = max(max_rel(y, y_ref), max_rel(s, s_ref))
+    print("  B{} T{} H{} K{} V{}".format(*WKV_PATH) + f" chunk 16 r/k/v bf16: max |diff| / "
+          f"max |plain| {err:.3e} (tol {WKV_RTOL:g}); max |y| {y_ref.abs().max().item():.3e}, "
+          f"max |state| {s_ref.abs().max().item():.3e}")
+    check(err <= WKV_RTOL, f"wkv6 kernel disagrees with its plain version: {err} > {WKV_RTOL}")
+    worst = max(worst, (y - y_ref).abs().max().item(), (s - s_ref).abs().max().item())
+    print(f"kernels: wkv6 max abs err {worst:.3e}")
+    return worst
+
+
 def flash_bound_ms(B, S, N, K, hd, window, elem_bytes, peak):
     """Least time: flops 4 * hd per unmasked (q, k) pair and head over the
     dtype's peak; bytes q, k, v read and the output written once."""
@@ -484,14 +565,31 @@ def ssd_bound_ms(B, T, H, P, N, chunk, elem_bytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def wkv6_bound_ms(B, T, H, K, V, chunk, elem_bytes):
+    """Least time: per (b, head, chunk), 3K flops for each of the c(c-1)/2
+    strict pairs s < t and the c diagonal u terms, 2V for each of their
+    products with v, 2cKV for y from the state and 2cKV for the state update,
+    over the fp32 peak; bytes r, k, v (`elem_bytes`), w, u and the state read
+    once, y and the state written once."""
+    nc = -(-T // chunk)
+    terms = chunk * (chunk - 1) // 2 + chunk
+    flops = B * H * nc * (terms * (3 * K + 2 * V) + 4 * chunk * K * V)
+    bytes_ = (B * T * H * (2 * K + V) * elem_bytes + B * T * H * K * 4 + H * K * 4
+              + 2 * B * H * K * V * 4 + B * T * H * V * 4)
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def prefill_timings(flush):
-    """Both prefill kernels at the path shapes: kernel, plain version, SDPA for
-    attention (on K/V repeated to N heads and laid out (B, N, S, hd), untimed),
-    and the bound."""
+    """The three prefill kernels at the path shapes: kernel, plain version,
+    SDPA for attention (on K/V repeated to N heads and laid out (B, N, S, hd),
+    untimed), and the bound."""
     phase("prefill kernel times")
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.mamba2_ssd.ops import _ssd_chunked, ssd
+    from repro_torch.kernels.rwkv6_scan.ops import _wkv6_chunked, wkv6
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
@@ -525,20 +623,32 @@ def prefill_timings(flush):
     print("  ssd zamba2: B{} T{} H{} P{} N{}".format(*SSD_PATH) + f" chunk 32 x/B/C bf16: "
           f"kernel {ms:.4f} ms, plain chunked {plain:.4f} ms, no single PyTorch call, "
           f"{bound_by} bound {bound:.4f} ms")
+    del args
+    args = wkv6_inputs(*WKV_PATH, torch.bfloat16, seed=202)
+    ms = time_ms(lambda: wkv6(*args, impl="pallas"), flush)
+    plain = time_ms(lambda: _wkv6_chunked(*args, chunk=16), flush, runs=10, warmup=2)
+    bound, bound_by = wkv6_bound_ms(*WKV_PATH, 16, 2)
+    rows["wkv6_rwkv6"] = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
+                          "bound_by": bound_by}
+    print("  wkv6 rwkv6-3b: B{} T{} H{} K{} V{}".format(*WKV_PATH) + f" chunk 16 r/k/v bf16: "
+          f"kernel {ms:.4f} ms, plain chunked {plain:.4f} ms, no single PyTorch call, "
+          f"{bound_by} bound {bound:.4f} ms")
     return rows
 
 
 # ------------------------------------------------------------------ prefill path
 def decode_state_from_prefill(tf, params, cfg, caches, B, S, max_len):
     """A decode state whose caches hold the prefill's: K/V copied into the
-    first S positions, the Mamba2 states taken as they are."""
+    first S positions, the Mamba2 and RWKV6 states taken as they are."""
     state = tf.init_decode_state(params, cfg, B, max_len)
     state["lengths"].fill_(S)
-    kv_key = "shared_kv" if cfg.family == "hybrid" else "kv"
-    for dst, src in zip(state[kv_key], caches[kv_key], strict=True):
-        dst[:, :, :S] = src
-    if cfg.family == "hybrid":
-        state["mamba"] = caches["mamba"]
+    for key in ("kv", "shared_kv"):
+        if key in caches:
+            for dst, src in zip(state[key], caches[key], strict=True):
+                dst[:, :, :S] = src
+    for key in ("mamba", "rwkv"):
+        if key in caches:
+            state[key] = caches[key]
     return state
 
 
@@ -548,28 +658,38 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.mamba2_ssd.ops import _ssd_chunked
+    from repro_torch.kernels.rwkv6_scan.ops import _wkv6_chunked
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import mamba2 as m2
+    from repro_torch.models import rwkv6 as rk
     from repro_torch.models import transformer as tf
 
     phase(f"prefill path: {arch} full width, prefill + cached decode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory allocated before the build: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     cfg = get_config(arch)
     B, S, steps = 2, 2048, 16
     t0 = time.perf_counter()
     params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     torch.cuda.synchronize()
+    dims = {"hybrid": f" ssm H{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} "
+                      f"P{cfg.ssm_head_dim} N{cfg.ssm_state}",
+            "ssm": f" wkv H{cfg.d_model // cfg.rwkv_head_dim} hd{cfg.rwkv_head_dim} "
+                   f"decay LoRA {cfg.rwkv_decay_lora}"}.get(cfg.family, "")
     print(f"built {cfg.name} in {time.perf_counter() - t0:.2f} s: L{cfg.num_layers} "
           f"D{cfg.d_model} N{cfg.num_heads} K{cfg.num_kv_heads} hd{cfg.resolved_head_dim} "
-          f"F{cfg.d_ff} V{cfg.vocab_size}" + (f" ssm H{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim}"
-                                                f" P{cfg.ssm_head_dim} N{cfg.ssm_state}"
-                                                if cfg.family == "hybrid" else ""))
+          f"F{cfg.d_ff} V{cfg.vocab_size}{dims}, "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B parameters")
     toks = torch.randint(0, cfg.vocab_size, (B, S + steps), dtype=torch.int32, device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
     prompt = toks[:, :S]
-    opts = tf.ModelOptions(attn_impl="flash", ssd_impl="pallas")
+    opts = tf.ModelOptions(attn_impl="flash", ssd_impl="pallas", wkv_impl="pallas")
 
-    def prefill():
-        return tf.forward(params, cfg, prompt, opts, collect_kv=True, last_only=True)
+    def forward(p, c):
+        return tf.forward(p, c, prompt, opts, collect_kv=True, last_only=True)
+
+    prefill = functools.partial(forward, params, cfg)
 
     zero_counts()
     fwd_ms = []
@@ -603,26 +723,46 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     check(int(state["lengths"][0]) == S + steps, "decode did not advance the lengths")
     print(f"decode {steps} steps x B{B} from the prefill caches: median step "
           f"{statistics.median(step_ms):.2f} ms (first {step_ms[0]:.2f} ms), logits finite")
+    del state, step_logits
     profiled(prefill, f"one {arch} prefill forward")
+
+    # Each kernel is reached through a module attribute; the checks and the
+    # plain prefills put other functions there and restore the kernels after.
+    hooks = {"flash_attention": (attn_mod, "flash_attention"), "mamba2_ssd": (m2, "ssd"),
+             "wkv6": (rk, "wkv6")}
+    kernels = {name: getattr(mod, attr) for name, (mod, attr) in hooks.items()}
+
+    def run_with(fns, run=prefill):
+        for name, fn in fns.items():
+            setattr(*hooks[name], fn)
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            for name, (mod, attr) in hooks.items():
+                setattr(mod, attr, kernels[name])
+        return out
 
     # Each kernel call of one more prefill, held against its plain version on
     # the same inputs, the model's own activations. Flash: element by element
     # within one bf16 ulp, BF16_RTOL |plain| + BF16_ATOL max(1, max |plain|).
-    # The SSD: at phase 6's tolerance taken relative to the largest |value| of
-    # the plain output (the zamba2 states reach ~1e7 with random weights). Its
-    # plain chunked form evaluated in fp64: the model's dt reaches ~500, where
-    # fp32 differences of L = A * cumsum(dt) lose digits, so the fp32 plain
-    # form is itself off by ~1e-3 (printed beside).
-    kernel_flash, kernel_ssd = attn_mod.flash_attention, m2.ssd
+    # The SSD: at phase 6's tolerance taken relative to max(1, the largest
+    # |value| of the plain output) (the zamba2 states reach ~1e7 with random
+    # weights). Its plain chunked form evaluated in fp64: the model's dt
+    # reaches ~500, where fp32 differences of L = A * cumsum(dt) lose digits,
+    # so the fp32 plain form is itself off by ~1e-3 (printed beside). WKV6:
+    # y and the state each within WKV_RTOL of the plain output's own largest
+    # |value|, with no floor (they sit near 1e-2).
     worst = {"flash_attention": 0.0, "flash share of tol": 0.0, "mamba2_ssd": 0.0,
-             "plain fp32 ssd": 0.0, "max dt": 0.0}
+             "plain fp32 ssd": 0.0, "max dt": 0.0, "wkv6": 0.0, "max |wkv y|": 0.0,
+             "max |wkv state|": 0.0}
 
     def rel_err(out, ref):
         return (out.double() - ref.double()).abs().max().item() / max(
             1.0, ref.double().abs().max().item())
 
     def flash_checked(q, k, v, *, window, scale, causal=True):
-        out = kernel_flash(q, k, v, window=window, scale=scale, causal=causal)
+        out = kernels["flash_attention"](q, k, v, window=window, scale=scale, causal=causal)
         ref = attention_ref(q, k, v, window, scale=scale, causal=causal).float()
         tol = BF16_RTOL * ref.abs() + BF16_ATOL * max(1.0, ref.abs().max().item())
         worst["flash share of tol"] = max(worst["flash share of tol"],
@@ -631,7 +771,7 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
         return out
 
     def ssd_checked(*args, impl="chunked", chunk=32):
-        y, h = kernel_ssd(*args, impl=impl, chunk=chunk)
+        y, h = kernels["mamba2_ssd"](*args, impl=impl, chunk=chunk)
         y64, h64 = _ssd_chunked(*(t.double() for t in args), chunk)
         y32, h32 = _ssd_chunked(*args, chunk)
         worst["mamba2_ssd"] = max(worst["mamba2_ssd"], rel_err(y, y64), rel_err(h, h64))
@@ -640,59 +780,108 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
         worst["max dt"] = max(worst["max dt"], args[1].max().item())
         return y, h
 
-    attn_mod.flash_attention, m2.ssd = flash_checked, ssd_checked
-    try:
-        prefill()
-        torch.cuda.synchronize()
-    finally:
-        attn_mod.flash_attention, m2.ssd = kernel_flash, kernel_ssd
+    def wkv6_checked(*args, impl="chunked", chunk=16):
+        y, s = kernels["wkv6"](*args, impl=impl, chunk=chunk)
+        y_ref, s_ref = _wkv6_chunked(*args, chunk)
+        worst["wkv6"] = max(worst["wkv6"], max_rel(y, y_ref), max_rel(s, s_ref))
+        worst["max |wkv y|"] = max(worst["max |wkv y|"], y_ref.abs().max().item())
+        worst["max |wkv state|"] = max(worst["max |wkv state|"], s_ref.abs().max().item())
+        return y, s
+
+    run_with({"flash_attention": flash_checked, "mamba2_ssd": ssd_checked,
+              "wkv6": wkv6_checked})
     shown = [name for name in worst if name in per_forward or
              (name == "flash share of tol" and "flash_attention" in per_forward) or
-             (name in ("plain fp32 ssd", "max dt") and "mamba2_ssd" in per_forward)]
+             (name in ("plain fp32 ssd", "max dt") and "mamba2_ssd" in per_forward) or
+             (name.startswith("max |wkv") and "wkv6" in per_forward)]
     print("every kernel call of a prefill vs its plain version on the same inputs, max "
-          "|diff| / max(1, max |plain|), and flash's largest |diff| / tol: " +
-          ", ".join(f"{n} {worst[n]:.3e}" for n in shown))
+          "|diff| / max(1, max |plain|) (wkv6: / max |plain|), and flash's largest "
+          "|diff| / tol: " + ", ".join(f"{n} {worst[n]:.3e}" for n in shown))
     check(worst["flash share of tol"] <= 1.0, "flash_attention disagrees on the path's inputs")
     check(worst["mamba2_ssd"] <= 5e-4, "mamba2_ssd disagrees on the path's inputs")
+    check(worst["wkv6"] <= WKV_RTOL, "wkv6 disagrees on the path's inputs")
 
     # The whole prefill with the plain versions in place of the kernels. The
-    # hybrid is compared a second time, plain against plain with the SSD
-    # summed in chunks of 16: random weights and no pre-norm before its Mamba2
-    # blocks make it amplify any rounding difference, and this shows how much.
-    def plain_prefill(ssd_chunk=32):
-        attn_mod.flash_attention = lambda q, k, v, *, window, scale, causal=True: \
-            attention_ref(q, k, v, window, scale=scale, causal=causal)
-        m2.ssd = lambda *a, impl="chunked", chunk=32: _ssd_chunked(*a, ssd_chunk)
-        try:
-            before = read_counts()
-            out = prefill()
-            torch.cuda.synchronize()
-            check(read_counts() == before, "the plain prefill launched a kernel")
-        finally:
-            attn_mod.flash_attention, m2.ssd = kernel_flash, kernel_ssd
+    # recurrent models are compared a second time, plain against plain with
+    # the scan summed in other chunks: with random weights they amplify any
+    # rounding difference (zamba2 through SSD states that grow to ~1e7, rwkv6
+    # through 32 layers of bf16 activations), and this shows how much.
+    def plain_prefill(ssd_chunk=32, wkv_chunk=16, run=prefill):
+        before = read_counts()
+        out = run_with({
+            "flash_attention": lambda q, k, v, *, window, scale, causal=True:
+                attention_ref(q, k, v, window, scale=scale, causal=causal),
+            "mamba2_ssd": lambda *a, impl="chunked", chunk=32: _ssd_chunked(*a, ssd_chunk),
+            "wkv6": lambda *a, impl="chunked", chunk=16: _wkv6_chunked(*a, wkv_chunk),
+        }, run)
+        check(read_counts() == before, "the plain prefill launched a kernel")
         return out
 
     def compare(what, one, other):
+        """Print how far two prefills are apart; returns the largest |logit
+        diff| and the largest WKV state difference over the largest |state|."""
         (a, _, ca), (b, _, cb) = one, other
         a, b = a[..., :cfg.vocab_size], b[..., :cfg.vocab_size]
-        check(bool(torch.isfinite(b).all()), f"non-finite logits: {what}")
-        kv_key = "shared_kv" if cfg.family == "hybrid" else "kv"
-        kv_diff = max((x.float() - y.float()).abs().max().item()
-                      for x, y in zip(ca[kv_key], cb[kv_key], strict=True))
-        line = (f"prefill {what}: max |logit diff| {(a - b).abs().max().item():.4e}, argmax "
-                f"agreement {(a.argmax(-1) == b.argmax(-1)).float().mean().item():.3f}, "
-                f"max |K/V cache diff| {kv_diff:.4e}")
-        if cfg.family == "hybrid":
+        check(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
+              f"non-finite logits: {what}")
+        logit_diff = (a - b).abs().max().item()
+        line = (f"prefill {what}: max |logit diff| {logit_diff:.4e} of max |logit| "
+                f"{b.abs().max().item():.4e}, argmax agreement "
+                f"{(a.argmax(-1) == b.argmax(-1)).float().mean().item():.3f}")
+        for key in ("kv", "shared_kv"):
+            if key in ca:
+                kv_diff = max((x.float() - y.float()).abs().max().item()
+                              for x, y in zip(ca[key], cb[key], strict=True))
+                line += f", max |K/V cache diff| {kv_diff:.4e}"
+        if "mamba" in ca:
             ssd_diff = (ca["mamba"]["ssd"] - cb["mamba"]["ssd"]).abs().max().item()
             line += (f", max |SSD state diff| {ssd_diff:.4e} of max |SSD state| "
                      f"{cb['mamba']['ssd'].abs().max().item():.4e}")
+        wkv_rel = 0.0
+        if "rwkv" in ca:
+            wa, wb = ca["rwkv"]["wkv"], cb["rwkv"]["wkv"]
+            wkv_rel = max_rel(wa, wb)
+            shift = max((ca["rwkv"][k].float() - cb["rwkv"][k].float()).abs().max().item()
+                        for k in ("tm_x", "cm_x"))
+            line += (f", max |WKV state diff| {(wa - wb).abs().max().item():.4e} of max |WKV "
+                     f"state| {wb.abs().max().item():.4e}, max |token-shift carry diff| "
+                     f"{shift:.4e}")
         print(line)
+        return logit_diff, wkv_rel
 
     plain = plain_prefill()
     compare("kernels vs plain versions", (logits, None, caches), plain)
     if cfg.family == "hybrid":
         compare("plain vs plain with SSD chunk 16", plain, plain_prefill(ssd_chunk=16))
+    if cfg.family == "ssm":
+        compare("plain vs plain with WKV chunk 32", plain, plain_prefill(wkv_chunk=32))
+        # The same model with every weight and activation in fp32, where
+        # rounding is not amplified to the bf16 spread: kernels against plain
+        # versions within stated bounds.
+        del plain, caches
+        cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+        params32 = _tree_map(lambda t: t.float(), params)
+        run32 = functools.partial(forward, params32, cfg32)
+        kernel32 = run_with({}, run32)
+        logit_diff, wkv_rel = compare("in fp32, kernels vs plain versions", kernel32,
+                                      plain_prefill(run=run32))
+        check(logit_diff <= RWKV_FP32_LOGIT_ATOL,
+              f"fp32 prefill logits, kernels vs plain: {logit_diff} > {RWKV_FP32_LOGIT_ATOL}")
+        check(wkv_rel <= RWKV_FP32_STATE_RTOL,
+              f"fp32 prefill WKV states, kernels vs plain: {wkv_rel} > {RWKV_FP32_STATE_RTOL}")
     return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def kernel_record(name, source, replaces, launches, worst, row, **extra):
@@ -718,10 +907,13 @@ def main() -> int:
     launches = main_path(ops, ref)
     worst_flash = flash_vs_plain()
     worst_ssd = ssd_vs_plain()
+    worst_wkv = wkv6_vs_plain()
     prefill_rows = prefill_timings(flush)
     del flush
     gemma = prefill_path("gemma3-1b", {"flash_attention": 26})
     zamba = prefill_path("zamba2-1.2b", {"flash_attention": 6, "mamba2_ssd": 38})
+    rwkv = prefill_path("rwkv6-3b", {"wkv6": 32})
+    phase("results")
     print(json.dumps({"kernels": [
         kernel_record("paged_attention",
                       "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
@@ -737,6 +929,10 @@ def main() -> int:
                       "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
                       "src/repro/kernels/mamba2_ssd/mamba2_ssd.py:82",
                       zamba["mamba2_ssd"], worst_ssd, prefill_rows["ssd_zamba2"]),
+        kernel_record("wkv6",
+                      "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+                      "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:80",
+                      rwkv["wkv6"], worst_wkv, prefill_rows["wkv6_rwkv6"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@ parameters with the reference's ``init_params``, convert the tree to numpy
 themselves (the port never sees JAX), and hand it to ``from_reference``.
 Both packages keep the layer-stacked ``(L, ...)`` layout, so the mapping is
 one-to-one, key for key, and every leaf keeps its dtype: the fp32 leaves of a
-bf16 tree (Mamba2's ``A_log``, ``D``, ``dt_bias``) stay fp32.
+bf16 tree (Mamba2's ``A_log``, ``D``, ``dt_bias``; RWKV6's ``w0``, ``wA``,
+``wB``, ``u``) stay fp32.
 """
 
 from __future__ import annotations
@@ -38,6 +39,11 @@ def _convert(tree, device):
 def _expected_shapes(params_np, cfg: ArchConfig):
     """(path, shape found, shape `cfg` needs) for the leaves that fix the widths."""
     attn_w = (cfg.d_model, cfg.num_heads, cfg.resolved_head_dim)
+    if cfg.family == "ssm":
+        L, D, hd = cfg.num_layers, cfg.d_model, cfg.rwkv_head_dim
+        blocks = params_np["blocks"]
+        return [("blocks/wr", blocks["wr"].shape, (L, D, D)),
+                ("blocks/u", blocks["u"].shape, (L, D // hd, hd))]
     if cfg.family == "hybrid":
         d_in, _, H, N = m2._dims(cfg)
         return [("shared_attn/attn/wq", params_np["shared_attn"]["attn"]["wq"].shape,

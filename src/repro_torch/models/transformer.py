@@ -1,18 +1,20 @@
 """Model assembly: init, embedding, full-sequence forward, and cached decode.
 
-The port of ``repro/models/transformer.py`` for two kinds of model:
+The port of ``repro/models/transformer.py`` for three kinds of model:
 
   * attention families (dense / vlm / audio): pre-norm blocks with GQA
     attention (full / sliding_global / bidirectional) and an MLP;
   * hybrid (zamba2): Mamba2 layers with a SHARED attention+MLP block invoked
     every ``ssm_attn_every`` layers (weights shared across invocations, one KV
-    cache per invocation).
+    cache per invocation);
+  * ssm (rwkv6): RWKV6 blocks, attention-free, with an O(1) recurrent state
+    per layer.
 
 Parameters keep the reference's tree and its layer-stacked ``(L, ...)``
 layout, so ``repro_torch.interop.from_reference`` maps one tree onto the
 other key for key. The reference's ``lax.scan`` over layers becomes a Python
-loop over per-layer views of the stacked parameters. MoE and the rwkv6 ssm
-family raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+loop over per-layer views of the stacked parameters. MoE raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as ll
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as rk
 from repro_torch.models.layers import dtype_of
 
 BIG_WINDOW = np.int32(2**30)
@@ -36,12 +39,11 @@ BIG_WINDOW = np.int32(2**30)
 # What is not ported yet, and the ROADMAP item that ports each.
 _UNPORTED = {
     "moe": "ROADMAP A.7 (MoE)",
-    "ssm": "ROADMAP A.8 (rwkv6-3b, with kernel B.4)",
 }
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Raise unless the port runs `cfg`: every family but MoE and ssm."""
+    """Raise unless the port runs `cfg`: every family but MoE."""
     item = _UNPORTED["moe"] if cfg.moe else _UNPORTED.get(cfg.family)
     if item is not None:
         raise NotImplementedError(
@@ -113,7 +115,9 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Dict[st
     if cfg.input_mode == "tokens":
         # std 1/sqrt(D): keeps tied logits O(1) and scale_embedding outputs ~N(0,1)
         params["embed"] = ll.trunc_normal(gen, (V, D), math.sqrt(V / D), dtype, dev)
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        params["blocks"] = rk.init_rwkv6(gen, L, cfg, dtype, dev)
+    elif cfg.family == "hybrid":
         params["blocks"] = m2.init_mamba2(gen, L, cfg, dtype, dev)
         params["shared_attn"] = _init_attn_stack(gen, cfg, 1, dtype, dev)
     else:
@@ -199,7 +203,9 @@ def forward(params, cfg: ArchConfig, inputs: torch.Tensor,
             f"ported yet (ROADMAP A.9)")
     h = embed_inputs(params, cfg, inputs)
     caches: Dict[str, Any] = {}
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        h, caches = _ssm_forward(params, cfg, h, opts, collect_kv)
+    elif cfg.family == "hybrid":
         h, caches = _hybrid_forward(params, cfg, h, opts, collect_kv)
     else:
         windows = layer_windows(cfg, cfg.num_layers)
@@ -218,11 +224,28 @@ def forward(params, cfg: ArchConfig, inputs: torch.Tensor,
     return logits, torch.zeros((), dtype=torch.float32, device=h.device), caches
 
 
+def _stack_states(states):
+    """Per-layer state dicts -> one dict of (L, ...) tensors."""
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def _ssm_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: bool):
+    """RWKV6: every layer starts from a zero state; caches {"rwkv": {"tm_x",
+    "cm_x", "wkv"}} stacked over L when collect_kv."""
+    state = rk.rwkv6_init_state(cfg, h.shape[0], h.dtype, h.device)
+    states = []
+    for i in range(cfg.num_layers):
+        h, st = rk.rwkv6_block(_layer(params["blocks"], i), h, state, cfg, impl=opts.wkv_impl)
+        if collect_kv:
+            states.append(st)
+    return h, ({"rwkv": _stack_states(states)} if collect_kv else {})
+
+
 def _hybrid_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: bool):
     """Zamba2: Mamba2 layers; the shared attention block every ssm_attn_every."""
     state = m2.mamba2_init_state(cfg, h.shape[0], h.dtype, h.device)
     shared = _layer(params["shared_attn"], 0)                    # strip L=1
-    convs, ssds, ks, vs = [], [], [], []
+    states, ks, vs = [], [], []
     for i, attn_here in enumerate(_use_attn(cfg)):
         out, st = m2.mamba2_block(_layer(params["blocks"], i), h, state, cfg,
                                   impl=opts.ssd_impl)
@@ -233,11 +256,10 @@ def _hybrid_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: 
                 ks.append(k)
                 vs.append(v)
         if collect_kv:
-            convs.append(st["conv"])
-            ssds.append(st["ssd"])
+            states.append(st)
     caches: Dict[str, Any] = {}
     if collect_kv:
-        caches = {"mamba": {"conv": torch.stack(convs), "ssd": torch.stack(ssds)},
+        caches = {"mamba": _stack_states(states),
                   "shared_kv": (torch.stack(ks), torch.stack(vs))}
     return h, caches
 
@@ -261,7 +283,11 @@ def init_decode_state(params, cfg: ArchConfig, batch: int, max_len: int,
         state["kv_ring"] = kv(L, cfg.sliding_window)
         state["kv_global"] = kv(max(n_global, 1), max_len)
         return state
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        one = rk.rwkv6_init_state(cfg, batch, dtype, dev)
+        state["rwkv"] = {k: torch.zeros((L, *v.shape), dtype=v.dtype, device=dev)
+                         for k, v in one.items()}
+    elif cfg.family == "hybrid":
         one = m2.mamba2_init_state(cfg, batch, dtype, dev)
         state["mamba"] = {k: torch.zeros((L, *v.shape), dtype=v.dtype, device=dev)
                           for k, v in one.items()}
@@ -277,14 +303,20 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any], inputs: torch.Te
 
     Returns (logits (B, V), new_state). The new token's K/V is written into
     the caches of `state` in place, and `new_state` holds those same cache
-    tensors (the reference returns new ones); lengths and the Mamba2 states
-    are new tensors."""
+    tensors (the reference returns new ones); lengths and the Mamba2 and
+    RWKV6 states are new tensors."""
     require_ported(cfg)
     h = embed_inputs(params, cfg, inputs)
     lengths = state["lengths"]
     new_state: Dict[str, Any] = {"lengths": lengths + 1}
 
-    if cfg.family == "hybrid":
+    if cfg.family == "ssm":
+        states = []
+        for i in range(cfg.num_layers):
+            h, st = rk.rwkv6_decode(_layer(params["blocks"], i), h, _layer(state["rwkv"], i), cfg)
+            states.append(st)
+        new_state["rwkv"] = _stack_states(states)
+    elif cfg.family == "hybrid":
         h = _hybrid_decode(params, cfg, state, h, new_state, opts)
     elif opts.sliding_ring and "kv_ring" in state:
         h = _sliding_ring_decode(params, cfg, state, h, new_state, opts)
@@ -340,7 +372,7 @@ def _hybrid_decode(params, cfg: ArchConfig, state, h, new_state, opts: ModelOpti
     lengths = state["lengths"]
     shared = _layer(params["shared_attn"], 0)
     kbuf, vbuf = state["shared_kv"]
-    convs, ssds = [], []
+    states = []
     inv = 0
     for i, attn_here in enumerate(_use_attn(cfg)):
         out, st = m2.mamba2_decode(_layer(params["blocks"], i), h,
@@ -355,8 +387,7 @@ def _hybrid_decode(params, cfg: ArchConfig, state, h, new_state, opts: ModelOpti
             h = h + a_out
             h = h + ll.mlp(shared["mlp"], ll.rms_norm(h, shared["ln2"]), cfg.mlp_activation)
             inv += 1
-        convs.append(st["conv"])
-        ssds.append(st["ssd"])
-    new_state["mamba"] = {"conv": torch.stack(convs), "ssd": torch.stack(ssds)}
+        states.append(st)
+    new_state["mamba"] = _stack_states(states)
     new_state["shared_kv"] = (kbuf, vbuf)
     return h

@@ -89,8 +89,6 @@ def test_other_families_name_their_roadmap_item():
 
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         init_params(torch.Generator(), get_config("olmoe-1b-7b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        init_params(torch.Generator(), get_config("rwkv6-3b").reduced(), device="cpu")
 
 
 def test_serve_launcher_runs_on_cpu(capsys):
