@@ -5,9 +5,13 @@ printed with the wall time of the phase before it:
   1. card: name and power limit, torch/CUDA versions; the four CUDA kernels
      built together, one nvcc per source, each in its own thread;
   2. the paged-attention kernel against its plain PyTorch version on the card,
-     at the reference's sweep shapes and at the serving shapes;
+     at the reference's sweep shapes, the serving shapes and the edges of its
+     64-token partitions;
   3. times (median of CUDA-event-timed runs, L2 flushed before each) of that
-     kernel, its plain version and a library yardstick, beside the byte bound;
+     kernel, its plain version and a library yardstick, beside the byte bound
+     and the bytes a second the kernel reached: at the serving path's shape
+     (one partition), a table of two partitions and a long context; with the
+     wrapper's host time a call and a profile of flushed calls;
   4. the serving path at full width: ``repro_torch.launch.serve`` serving
      gemma3-1b (26 layers, d_model 1152) with random bf16 weights, KV pages
      preempted into pinned host memory and promoted back; the kernel's launch
@@ -15,14 +19,16 @@ printed with the wall time of the phase before it:
      more steps of the same request mix; then decode steps with the kernel and
      with the plain version from the same pools;
   5. the flash-attention kernel against its plain version: the reference's
-     sweep (fp32 and bf16, causal and not) and the prefill shapes of
-     gemma3-1b and zamba2-1.2b, in fp32 and in bf16;
+     sweep (fp32 and bf16, causal and not), the bf16 tensor-core kernel's
+     edges (every head dim, ragged S, windows about a tile, non-causal) and
+     the prefill shapes of gemma3-1b and zamba2-1.2b, in fp32 and in bf16;
   6. the Mamba2 SSD kernel against its plain versions: the reference's sweep
      and zamba2-1.2b's shape;
   7. the WKV6 kernel against its plain versions: the reference's sweep and
      rwkv6-3b's shape;
   8. times of the three prefill kernels, their plain versions and, for
-     attention, SDPA as a yardstick, beside the bound at the path shapes;
+     attention, SDPA as a yardstick, beside the bound at the path shapes, and
+     the flops a second flash attention reached;
   9. the prefill path at full width for gemma3-1b, zamba2-1.2b and then
      rwkv6-3b, each model freed before the next is built:
      ``forward(collect_kv=True, last_only=True)`` at B=2 x 2048 tokens with
@@ -105,15 +111,20 @@ def paged_inputs(B, N, K, hd, page, lengths, q_dtype, seed):
     return q, kp, vp, table, lens
 
 
-def byte_flop_bound_ms(B, N, K, hd, page, lengths, window, q_bytes):
-    """Least time for one call: live K/V rows read once, table entries read,
-    q read and out written once; flops 4 per (query head, live element)."""
+def paged_bytes(B, N, K, hd, page, lengths, window, q_bytes):
+    """Bytes one call must move: live K/V rows read once, table entries read,
+    q read and out written once."""
     live = [min(n, window) for n in lengths]
     kv_bytes = sum(2 * n * K * hd * 4 for n in live)
     table_bytes = sum(-(-n // page) * 4 for n in lengths) + B * 4
-    io_bytes = 2 * B * N * hd * q_bytes
-    flops = sum(4 * N * hd * n for n in live)
-    t_bytes = (kv_bytes + table_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    return kv_bytes + table_bytes + 2 * B * N * hd * q_bytes
+
+
+def byte_flop_bound_ms(B, N, K, hd, page, lengths, window, q_bytes):
+    """Least time for one call: `paged_bytes` over the memory rate, or the
+    flops, 4 per (query head, live element), over the fp32 rate."""
+    flops = sum(4 * N * hd * min(n, window) for n in lengths)
+    t_bytes = paged_bytes(B, N, K, hd, page, lengths, window, q_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -197,6 +208,15 @@ def kernel_vs_plain(ops, ref):
         for window in (512, WINDOW_GLOBAL):
             cases.append(((B, 4, 1, 256, 8), lengths, window, torch.bfloat16, 1e-2))
             cases.append(((B, 4, 1, 256, 8), lengths, window, torch.float32, 2e-5))
+    # The kernel's 64-token partitions: lengths 1 and about one and two
+    # partitions, windows that cut a page and a partition, lengths 100x apart.
+    for B, lengths, windows in ((7, [1, 63, 64, 65, 127, 128, 129], (100, WINDOW_GLOBAL)),
+                                (2, [40, 4000], (512, WINDOW_GLOBAL)),
+                                (3, [130, 300, 1000], (1, 130))):
+        for window in windows:
+            cases.append(((B, 4, 1, 256, 8), lengths, window, torch.bfloat16, 1e-2))
+            cases.append(((B, 4, 1, 256, 8), lengths, window, torch.float32, 2e-5))
+    cases.append(((3, 8, 2, 64, 16), [1, 200, 2000], 130, torch.float32, 2e-5))
     for i, ((B, N, K, hd, page), lengths, window, q_dtype, tol) in enumerate(cases):
         q, kp, vp, table, lens = paged_inputs(B, N, K, hd, page, lengths, q_dtype, seed=i)
         out = ops.paged_attention(q, kp, vp, table, lens, window, scale=hd ** -0.5)
@@ -212,13 +232,31 @@ def kernel_vs_plain(ops, ref):
     return worst
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call in us: `calls` calls enqueued back to back, with
+    no sync between them, so the device's time is not counted."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def timings(ops, ref, flush):
-    """Kernel, plain version and SDPA yardstick at the serving and long shapes."""
+    """Kernel, plain version and SDPA yardstick at three shapes: the serving
+    path's own (a 5-page table, one partition, no combine), a 16-page table
+    (two partitions and the combine) and a long context."""
+    from repro_torch.kernels.paged_attention.paged_attention import num_partitions
+
     phase("times")
     rows = {}
-    for label, (B, N, K, hd, page), length in [("serving", (4, 4, 1, 256, 8), 128),
+    for label, (B, N, K, hd, page), length in [("serving", (2, 4, 1, 256, 8), 40),
+                                               ("two_partitions", (4, 4, 1, 256, 8), 128),
                                                ("long", (8, 4, 1, 256, 8), 4096)]:
         lengths = [length] * B
+        parts = num_partitions(-(-length // page), page)
         q, kp, vp, table, lens = paged_inputs(B, N, K, hd, page, lengths, torch.bfloat16,
                                               seed=100)
         scale = hd ** -0.5
@@ -228,16 +266,30 @@ def timings(ops, ref, flush):
         kg, vg = kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
         q4 = q.float()[:, :, None]
         args = (q, kp, vp, table, lens, WINDOW_GLOBAL)
-        ms = time_ms(functools.partial(ops.paged_attention, *args, scale=scale), flush)
+        kernel = functools.partial(ops.paged_attention, *args, scale=scale)
+        ms = time_ms(kernel, flush)
         plain = time_ms(functools.partial(ref.paged_attention_ref, *args, scale=scale), flush)
         lib = time_ms(functools.partial(torch.nn.functional.scaled_dot_product_attention,
                                         q4, kg, vg, scale=scale), flush)
         bound, bound_by = byte_flop_bound_ms(B, N, K, hd, page, lengths, WINDOW_GLOBAL, 2)
+        moved = paged_bytes(B, N, K, hd, page, lengths, WINDOW_GLOBAL, 2)
         rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
                        "bound_by": bound_by}
-        print(f"  {label}: B{B} N{N} K{K} hd{hd} page{page} length {length} q bf16: "
+        print(f"  {label}: B{B} N{N} K{K} hd{hd} page{page} length {length} q bf16, "
+              f"{parts} partition(s){' + combine' if parts > 1 else ''}: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-              f"{bound_by} bound {bound:.4f} ms at 3.35 TB/s")
+              f"{bound_by} bound {bound:.4f} ms at 3.35 TB/s; kernel "
+              f"{moved / ms / 1e6:.1f} GB/s ({moved / 1e6:.2f} MB)")
+        # Whether `ms` holds host time: the wrapper's enqueue against the
+        # flush's device time, and the kernels' own device time after a flush.
+        print(f"  {label}: wrapper enqueue {host_us(kernel):.1f} us a call on the host")
+
+        def flushed_calls():
+            for _ in range(20):
+                flush.zero_()
+                kernel()
+
+        profiled(flushed_calls, f"20 x (L2 flush, kernel) at the {label} shape")
     return rows
 
 
@@ -450,6 +502,16 @@ def flash_vs_plain():
             cases.append((shape, window, True, torch.float32, 2e-5, 0.0))
             cases.append((shape, window, True, torch.bfloat16, 2e-2, 0.0))
     cases.append(((2, 128, 4, 4, 64), WINDOW_GLOBAL, False, torch.float32, 2e-5, 0.0))
+    # The bf16 tensor-core kernel's edges within one bf16 ulp: every head dim,
+    # S not a multiple of its tiles, windows about a 64-key tile, non-causal.
+    for hd in (32, 64, 128, 256):
+        for window in (1, 63, 64, 65):
+            cases.append(((1, 1000, 4, 2, hd), window, True, torch.bfloat16, BF16_ATOL,
+                          BF16_RTOL))
+        cases.append(((2, 200, 4, 1, hd), WINDOW_GLOBAL, True, torch.bfloat16, BF16_ATOL,
+                      BF16_RTOL))
+        cases.append(((2, 200, 4, 4, hd), WINDOW_GLOBAL, False, torch.bfloat16, BF16_ATOL,
+                      BF16_RTOL))
     # The path's shapes, each template instantiation it runs: fp32 at 2e-5, and
     # bf16 within one bf16 ulp of |plain|. Outputs there are ~0.01-0.02, so a
     # flat 2e-2 would not tell a dropped k tile from rounding.
@@ -541,11 +603,16 @@ def wkv6_vs_plain():
     return worst
 
 
-def flash_bound_ms(B, S, N, K, hd, window, elem_bytes, peak):
-    """Least time: flops 4 * hd per unmasked (q, k) pair and head over the
-    dtype's peak; bytes q, k, v read and the output written once."""
+def flash_flops(B, S, N, hd, window):
+    """Flops the function needs: 4 * hd per unmasked causal (q, k) pair and head."""
     pairs = sum(q - max(0, q - window + 1) + 1 for q in range(S))
-    t_ops = 4 * B * N * hd * pairs / peak * 1e3
+    return 4 * B * N * hd * pairs
+
+
+def flash_bound_ms(B, S, N, K, hd, window, elem_bytes, peak):
+    """Least time: `flash_flops` over the dtype's peak; bytes q, k, v read and
+    the output written once."""
+    t_ops = flash_flops(B, S, N, hd, window) / peak * 1e3
     t_bytes = (2 * B * S * N * hd + 2 * B * S * K * hd) * elem_bytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -610,9 +677,11 @@ def prefill_timings(flush):
         bound, bound_by = flash_bound_ms(B, S, N, K, hd, window, 2, BF16_FLOPS_PER_S)
         rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
                        "bound_by": bound_by}
+        flops = flash_flops(B, S, N, hd, window)
         print(f"  flash {label}: B{B} S{S} N{N} K{K} hd{hd} window {window} bf16: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-              f"{bound_by} bound {bound:.4f} ms")
+              f"{bound_by} bound {bound:.4f} ms; kernel {flops / ms / 1e9:.1f} TFLOP/s, "
+              f"sdpa {flops / lib / 1e9:.1f} TFLOP/s ({flops / 1e9:.2f} GFLOP)")
         del q, k, v, qt, kt, vt
     args = ssd_inputs(*SSD_PATH, torch.bfloat16, seed=201)
     ms = time_ms(lambda: ssd(*args, impl="pallas"), flush)
@@ -918,7 +987,8 @@ def main() -> int:
         kernel_record("paged_attention",
                       "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
                       "src/repro/kernels/paged_attention/paged_attention.py:93",
-                      launches, worst, rows["serving"], long_context=rows["long"]),
+                      launches, worst, rows["serving"],
+                      two_partitions=rows["two_partitions"], long_context=rows["long"]),
         kernel_record("flash_attention",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:107",

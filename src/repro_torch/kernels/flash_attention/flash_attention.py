@@ -2,7 +2,8 @@
 
 The kernel (``csrc/flash_attention.cu``) is plain CUDA C++ for ``sm_90a``,
 built by ``kernels/_nvcc.py`` into the git-ignored ``build/`` at its first
-launch; nothing is built or loaded at import time. ``flash_attention`` checks
+launch; nothing is built or loaded at import time. bf16 inputs run on the
+tensor cores, fp32 inputs on the CUDA cores: a choice by dtype, not a fallback. ``flash_attention`` checks
 its inputs, allocates the output with ``torch.empty``, and launches on the
 current CUDA stream without synchronising. ``launches`` counts the launches
 this process made.
@@ -43,6 +44,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window
     _check(all(t.is_cuda for t in tensors), "all tensors must be CUDA tensors")
     _check(len({t.device for t in tensors}) == 1, "tensors are on different devices")
     _check(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")
+    _check(all(t.data_ptr() % 16 == 0 for t in tensors), "tensors must be 16-byte aligned")
     _check(q.dtype in (torch.float32, torch.bfloat16) and q.dtype == k.dtype == v.dtype,
            f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: all float32 or all bfloat16")
     _check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,

@@ -7,6 +7,10 @@ At the main path's shapes the kernel is held at 2e-5 in fp32 and, in bf16,
 within one bf16 ulp of the plain output (8e-3 of |plain| + 1e-4): outputs
 there are ~0.01-0.02, so a flat 2e-2 would not tell a lost k tile from rounding.
 
+The CUDA kernel computes P·V on the tensor cores from bf16 operands, with P
+split into two bf16 parts; its numerics are rehearsed here in plain torch
+against the reference's oracle at the one-ulp bound.
+
 JAX is imported only by the reference comparisons, so the CUDA cases also run
 on a machine with a card and no JAX (see README, "PyTorch / H100 port").
 """
@@ -17,8 +21,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import flash_attention as kernel_mod  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref  # noqa: E402
 
 SWEEP = [  # (B, S, N, K, hd): tests/test_kernels.py:27
     (1, 128, 4, 4, 64),
@@ -106,6 +111,89 @@ def test_plain_matches_reference_kernel(reference, shape, window, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+def _bf16(x):
+    """x rounded to bf16 (to nearest even), kept in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def tensor_core_attention(q, k, v, window, *, scale, causal=True, block_k=64, split_p=True):
+    """The bf16 CUDA kernel's arithmetic in plain torch: fp32 scores of bf16
+    inputs (exact products, fp32 sums), an online softmax in base 2 over
+    tiles of `block_k` keys, and P·V with P rounded as the kernel rounds it:
+    P_hi = bf16(P) and P_lo = bf16(P - P_hi) into one fp32 accumulator (or P_hi
+    alone with split_p=False). Computing tiles the kernel skips adds exact
+    zeros, so every tile is computed here."""
+    B, S, N, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    kk = k.float().repeat_interleave(N // K, 2).permute(0, 2, 3, 1)    # (B, N, hd, T)
+    vv = v.float().repeat_interleave(N // K, 2).transpose(1, 2)         # (B, N, T, hd)
+    qq = q.float().transpose(1, 2)                                       # (B, N, S, hd)
+    qpos = torch.arange(S)[:, None]
+    m = torch.full((B, N, S, 1), NEG_INF)
+    l = torch.zeros((B, N, S, 1))
+    acc = torch.zeros((B, N, S, hd))
+    scale_log2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(1.4426950408889634,
+                                                                           dtype=torch.float32)
+    for k0 in range(0, T, block_k):
+        kpos = torch.arange(k0, min(k0 + block_k, T))[None, :]
+        s = qq @ kk[..., k0:k0 + block_k]
+        keep = qpos - kpos < window
+        if causal:
+            keep = keep & (qpos >= kpos)
+        s = torch.where(keep, s * scale_log2, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi = _bf16(p)
+        pv = p_hi @ vv[:, :, k0:k0 + block_k]
+        if split_p:
+            pv = pv + _bf16(p - p_hi) @ vv[:, :, k0:k0 + block_k]
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-20)).transpose(1, 2).to(q.dtype)
+
+
+# Rows shaped like the path's: gemma3-1b's 4 query heads over 1 kv head at hd
+# 256 (the first rows of a causal sequence, where few keys share the weight,
+# and long rows under the sliding window and global), zamba2-1.2b's hd 64.
+EMULATED = [((1, 128, 4, 1, 256), 1 << 30, 32), ((1, 1024, 4, 1, 256), 512, 32),
+            ((1, 1024, 4, 1, 256), 1 << 30, 32), ((1, 512, 8, 8, 64), 1 << 30, 64),
+            ((1, 200, 4, 1, 128), 63, 64)]
+
+
+@pytest.mark.parametrize("case", EMULATED,
+                         ids=lambda c: "B{}S{}N{}K{}hd{}".format(*c[0]) + f"-w{c[1]}")
+def test_tensor_core_numerics_hold_one_bf16_ulp(reference, case):
+    """The kernel's P·V numerics (P split into two bf16 parts, fp32
+    accumulation) against the reference's oracle, element by element within
+    one bf16 ulp: 8e-3 |ref| + 1e-4, the bound the card's checks use."""
+    jnp, ml_dtypes, jax_ref, _ = reference
+    shape, window, block_k = case
+    q, k, v = _cast(make_inputs(*shape, seed=shape[1] + window % 101), "bfloat16", ml_dtypes)
+    scale = shape[-1] ** -0.5
+    ref = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.int32(window), scale=scale), np.float32)
+    out = tensor_core_attention(_torch(q), _torch(k), _torch(v), window, scale=scale,
+                                block_k=block_k).float().numpy()
+    bound = PATH_TOL["bfloat16"]["atol"] + PATH_TOL["bfloat16"]["rtol"] * np.abs(ref)
+    assert np.all(np.abs(out - ref) <= bound), float(np.max(np.abs(out - ref) / bound))
+
+
+def test_splitting_p_removes_its_rounding():
+    """P·V with P split into two bf16 parts is as close to the fp32 product as
+    fp32 sums allow; one bf16 rounding of P is off by ~2^-9 of each term."""
+    q, k, v = (_torch(a).to(torch.bfloat16) for a in make_inputs(1, 256, 4, 1, 256, seed=8))
+    exact = attention_ref(q.float(), k.float(), v.float(), 1 << 30, scale=1 / 16)
+    split = tensor_core_attention(q.float(), k.float(), v.float(), 1 << 30, scale=1 / 16,
+                                  block_k=32)
+    single = tensor_core_attention(q.float(), k.float(), v.float(), 1 << 30, scale=1 / 16,
+                                   block_k=32, split_p=False)
+    err_split = (split - exact).abs().max().item()
+    err_single = (single - exact).abs().max().item()
+    assert err_split <= 1e-5 and err_single > 100 * err_split, (err_split, err_single)
+
+
 def test_cpu_tensors_take_the_plain_version():
     q, k, v = (torch.from_numpy(a) for a in make_inputs(1, 40, 4, 2, 32, seed=4))
     before = kernel_mod.launches
@@ -160,3 +248,28 @@ def test_cuda_kernel_matches_plain_non_causal():
     out = flash_attention(q, k, v, window=1 << 30, scale=0.125, causal=False)
     ref = attention_ref(q, k, v, 1 << 30, scale=0.125, causal=False)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+# The tensor-core kernel's edges, bf16 only (fp32 takes the CUDA-core kernel):
+# every head dim, ragged S, windows about a 64-key tile, non-causal, and
+# queries and keys of different lengths. (shape, T, window, causal)
+TC_CASES = ([((1, 1000, 4, 2, hd), 1000, w, True) for hd in HEAD_DIMS
+             for w in (1, 63, 64, 65, 1 << 30)]
+            + [((2, 200, 4, 1, hd), 200, 1 << 30, True) for hd in HEAD_DIMS]
+            + [((2, 200, 4, 4, hd), 200, 1 << 30, False) for hd in HEAD_DIMS]
+            + [((2, 200, 4, 2, hd), 1000, 1 << 30, False) for hd in HEAD_DIMS]
+            + [((2, 1000, 4, 2, hd), 200, 1 << 30, True) for hd in HEAD_DIMS])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "B{}S{}N{}K{}hd{}".format(*c[0]) +
+                         f"-T{c[1]}-w{c[2]}" + ("" if c[3] else "-noncausal"))
+def test_cuda_tensor_core_kernel_within_one_bf16_ulp(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape, T, window, causal = case
+    q, k, v = (_torch(a).cuda().to(torch.bfloat16) for a in make_inputs(*shape, seed=9, T=T))
+    scale = shape[-1] ** -0.5
+    out = flash_attention(q, k, v, window=window, scale=scale, causal=causal)
+    ref = attention_ref(q, k, v, window, scale=scale, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), **PATH_TOL["bfloat16"])
