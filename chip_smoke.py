@@ -3,7 +3,9 @@
 Phases, each of which raises (and so exits non-zero) on failure, each
 printed with the wall time of the phase before it:
   1. card: name and power limit, torch/CUDA versions; the four CUDA kernels
-     built together, one nvcc per source, each in its own thread;
+     built together, one nvcc per source, each in its own thread, with
+     ptxas's registers and spills for every instantiation, and 0 spill bytes
+     checked for the scans' instantiations on the prefill paths;
   2. the paged-attention kernel against its plain PyTorch version on the card,
      at the reference's sweep shapes, the serving shapes and the edges of its
      64-token partitions;
@@ -27,8 +29,10 @@ printed with the wall time of the phase before it:
   7. the WKV6 kernel against its plain versions: the reference's sweep and
      rwkv6-3b's shape;
   8. times of the three prefill kernels, their plain versions and, for
-     attention, SDPA as a yardstick, beside the bound at the path shapes, and
-     the flops a second flash attention reached;
+     attention, SDPA as a yardstick, beside the bound at the path shapes (for
+     the scans both the operations and the bytes bound), the flops a second
+     flash attention reached, and a profile of flushed calls of each scan that
+     gives each of its passes' own device time;
   9. the prefill path at full width for gemma3-1b, zamba2-1.2b and then
      rwkv6-3b, each model freed before the next is built:
      ``forward(collect_kv=True, last_only=True)`` at B=2 x 2048 tokens with
@@ -186,7 +190,44 @@ def card():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {path.stem}: {line.strip()}")
+    check_path_spills({src.stem: log for src, (_, log) in zip(sources, built, strict=True)})
     return smi
+
+
+# The instantiations the prefill paths launch (bf16, zamba2's chunk 32 and
+# P = N = 64; rwkv6-3b's chunk 16 and K = V = 64), by their mangled names.
+PATH_ENTRIES = {
+    "mamba2_ssd": ("ssd_chunk_kernelILi32E13__nv_bfloat16", "ssd_state_kernel",
+                   "ssd_output_kernelILi32E13__nv_bfloat16"),
+    "rwkv6_scan": ("wkv6_step_kernelILi64E13__nv_bfloat16", "wkv6_state_kernel",
+                   "wkv6_output_kernelILi16ELi64ELi1E13__nv_bfloat16"),
+}
+
+
+def spills(log: str) -> dict:
+    """Spill bytes (stores + loads) by entry name, from nvcc's -Xptxas -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[name] = nums[1] + nums[2]   # stack frame, spill stores, spill loads
+    return out
+
+
+def check_path_spills(logs: dict) -> None:
+    """Every instantiation the prefill paths launch spills 0 bytes."""
+    for stem, entries in PATH_ENTRIES.items():
+        if not logs.get(stem):
+            print(f"  ptxas {stem}: cached build, no log to check")
+            continue
+        found = spills(logs[stem])
+        for entry in entries:
+            hits = [n for n in found if entry in n]
+            check(len(hits) == 1, f"ptxas reported no single entry matching {entry}")
+            print(f"  path entry {entry}: {found[hits[0]]} spill bytes")
+            check(found[hits[0]] == 0, f"{entry} spills {found[hits[0]]} bytes")
 
 
 def kernel_vs_plain(ops, ref):
@@ -617,34 +658,44 @@ def flash_bound_ms(B, S, N, K, hd, window, elem_bytes, peak):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def ssd_bound_ms(B, T, H, P, N, chunk, elem_bytes):
-    """Least time: the chunked algorithm's fp32 flops per (b, head, chunk) over
-    the fp32 peak, counting only the c(c+1)/2 causal pairs s <= t of the
-    intra-chunk products (C B^T over N, scores x over P), c(c+1)(N + P), plus
-    4cPN for C H^T and the state update; bytes x, dt, B, C, A, D and the state
-    read once, y and the state written once."""
+def ssd_bounds_ms(B, T, H, P, N, chunk, elem_bytes):
+    """The operations and the bytes bound of one call, in ms. Operations: the
+    chunked algorithm's fp32 flops over the fp32 peak (the kernel runs them on
+    the CUDA cores), counting only the c(c+1)/2 causal pairs s <= t of the
+    intra-chunk products: C B^T, c(c+1)N, once per (b, chunk), since B and C
+    are one group shared by every head; per (b, head, chunk) the scores
+    against x, c(c+1)P, and 4cPN for C H^T and the state update. Bytes: x, dt,
+    B, C, A, D and the state read once, y and the state written once."""
     nc = -(-T // chunk)
-    flops = B * H * nc * (chunk * (chunk + 1) * (N + P) + 4 * chunk * P * N)
+    flops = (B * nc * chunk * (chunk + 1) * N
+             + B * H * nc * (chunk * (chunk + 1) * P + 4 * chunk * P * N))
     bytes_ = (B * T * H * P * elem_bytes + B * T * H * 4 + 2 * B * T * N * elem_bytes
               + 2 * H * 4 + 2 * B * H * P * N * 4 + B * T * H * P * 4)
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return flops / FP32_FLOPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
 
 
-def wkv6_bound_ms(B, T, H, K, V, chunk, elem_bytes):
-    """Least time: per (b, head, chunk), 3K flops for each of the c(c-1)/2
-    strict pairs s < t and the c diagonal u terms, 2V for each of their
-    products with v, 2cKV for y from the state and 2cKV for the state update,
-    over the fp32 peak; bytes r, k, v (`elem_bytes`), w, u and the state read
-    once, y and the state written once."""
+def wkv6_bounds_ms(B, T, H, K, V, chunk, elem_bytes):
+    """The operations and the bytes bound of one call, in ms, and the
+    operations bound were every flop fp32 on the CUDA cores. The kernel forms
+    the pair scores' decays on the CUDA cores (3K fp32 flops for each of the
+    c(c-1)/2 strict pairs and the c diagonal u terms) and runs the products
+    on the tensor cores: 2V for each score against v, 2cKV for y from the
+    state and 2cKV for the state update, counted once at the bf16 peak (the
+    bf16 hi and lo parts it splits fp32 operands into are its own extra
+    work). Bytes: r, k, v (`elem_bytes`), w, u and the state read once, y and
+    the state written once."""
     nc = -(-T // chunk)
     terms = chunk * (chunk - 1) // 2 + chunk
-    flops = B * H * nc * (terms * (3 * K + 2 * V) + 4 * chunk * K * V)
+    pair_flops = B * H * nc * terms * 3 * K
+    product_flops = B * H * nc * (terms * 2 * V + 4 * chunk * K * V)
     bytes_ = (B * T * H * (2 * K + V) * elem_bytes + B * T * H * K * 4 + H * K * 4
               + 2 * B * H * K * V * 4 + B * T * H * V * 4)
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = (pair_flops / FP32_FLOPS_PER_S + product_flops / BF16_FLOPS_PER_S) * 1e3
+    t_fp32 = (pair_flops + product_flops) / FP32_FLOPS_PER_S * 1e3
+    return t_ops, bytes_ / HBM_BYTES_PER_S * 1e3, t_fp32
+
+
+def larger(t_ops, t_bytes):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -683,25 +734,42 @@ def prefill_timings(flush):
               f"{bound_by} bound {bound:.4f} ms; kernel {flops / ms / 1e9:.1f} TFLOP/s, "
               f"sdpa {flops / lib / 1e9:.1f} TFLOP/s ({flops / 1e9:.2f} GFLOP)")
         del q, k, v, qt, kt, vt
+
+    def flushed(call):
+        def run():
+            for _ in range(20):
+                flush.zero_()
+                call()
+        return run
+
     args = ssd_inputs(*SSD_PATH, torch.bfloat16, seed=201)
     ms = time_ms(lambda: ssd(*args, impl="pallas"), flush)
     plain = time_ms(lambda: _ssd_chunked(*args, chunk=32), flush)
-    bound, bound_by = ssd_bound_ms(*SSD_PATH, 32, 2)
+    t_ops, t_bytes = ssd_bounds_ms(*SSD_PATH, 32, 2)
+    bound, bound_by = larger(t_ops, t_bytes)
     rows["ssd_zamba2"] = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
                           "bound_by": bound_by}
     print("  ssd zamba2: B{} T{} H{} P{} N{}".format(*SSD_PATH) + f" chunk 32 x/B/C bf16: "
-          f"kernel {ms:.4f} ms, plain chunked {plain:.4f} ms, no single PyTorch call, "
-          f"{bound_by} bound {bound:.4f} ms")
+          f"kernel {ms:.4f} ms, plain chunked {plain:.4f} ms, no single PyTorch call; bounds: "
+          f"fp32 operations {t_ops:.4f} ms, bytes {t_bytes:.4f} ms")
+    # Each pass's own device time: the profile names the kernels of the passes.
+    profiled(flushed(lambda: ssd(*args, impl="pallas")),
+             "20 x (L2 flush, mamba2_ssd) at zamba2's shape")
     del args
     args = wkv6_inputs(*WKV_PATH, torch.bfloat16, seed=202)
     ms = time_ms(lambda: wkv6(*args, impl="pallas"), flush)
     plain = time_ms(lambda: _wkv6_chunked(*args, chunk=16), flush, runs=10, warmup=2)
-    bound, bound_by = wkv6_bound_ms(*WKV_PATH, 16, 2)
+    t_ops, t_bytes, t_fp32 = wkv6_bounds_ms(*WKV_PATH, 16, 2)
+    bound, bound_by = larger(t_ops, t_bytes)
     rows["wkv6_rwkv6"] = {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
                           "bound_by": bound_by}
     print("  wkv6 rwkv6-3b: B{} T{} H{} K{} V{}".format(*WKV_PATH) + f" chunk 16 r/k/v bf16: "
-          f"kernel {ms:.4f} ms, plain chunked {plain:.4f} ms, no single PyTorch call, "
-          f"{bound_by} bound {bound:.4f} ms")
+          f"kernel {ms:.4f} ms, plain chunked {plain:.4f} ms, no single PyTorch call; bounds: "
+          f"operations {t_ops:.4f} ms (pair decays fp32, products on the tensor cores at "
+          f"bf16), bytes {t_bytes:.4f} ms; all-fp32 operations {t_fp32:.4f} ms, no floor "
+          f"for a kernel with tensor-core products")
+    profiled(flushed(lambda: wkv6(*args, impl="pallas")),
+             "20 x (L2 flush, wkv6) at rwkv6-3b's shape")
     return rows
 
 

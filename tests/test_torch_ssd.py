@@ -1,5 +1,6 @@
 """Mamba2 SSD: the port's oracle scan, plain chunked form and decode step against
-the reference's, and the CUDA kernel against the plain version.
+the reference's, the CUDA kernel's three-pass split rehearsed in plain torch,
+and the CUDA kernel against the plain version.
 
 Tolerance 5e-4, the reference's own (tests/test_kernels.py:109): the chunked
 form sums in another order than the step-by-step scan.
@@ -110,6 +111,89 @@ def test_decode_step_matches_reference_and_scan(reference):
     torch.testing.assert_close(state_t, h_scan, atol=1e-5, rtol=0)
 
 
+def ssd_state_passing(x, dt, A, Bm, C, D, state, chunk):
+    """The CUDA kernel's split in plain torch, in its arithmetic: fp32 products,
+    L = A * cumsum(dt) scanned and differenced in fp64.
+      pass 1: C B^T once per (b, chunk); each chunk's own state contribution
+              dH_c = (x dt exp(L_last - L))^T B and exp(L_last), for all chunks
+              at once;
+      pass 2: H_c = exp(L_last,c) H_{c-1} + dH_c, keeping the state each chunk
+              starts from;
+      pass 3: y = masked scores . x + exp(L_t) (C_t . H_{c-1}) + D x, all
+              chunks at once."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    x, Bm, C = (t.float() for t in (x, Bm, C))
+    pad = -T % chunk
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+    dt = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    Bm, C = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (Bm, C))
+    nc = x.shape[1] // chunk
+    xc = x.reshape(B, nc, chunk, H, P)
+    dtc = dt.reshape(B, nc, chunk, H)
+    Bc, Cc = Bm.reshape(B, nc, chunk, N), C.reshape(B, nc, chunk, N)
+    L = A.double() * torch.cumsum(dtc.double(), dim=2)                    # (B,nc,c,H)
+    # pass 1
+    cb = torch.einsum("bntk,bnsk->bnts", Cc, Bc)                         # (B,nc,c,c)
+    w = dtc * torch.exp((L[:, :, -1:] - L).float())
+    d_h = torch.einsum("bnshp,bnsk->bnhpk", xc * w[..., None], Bc)        # (B,nc,H,P,N)
+    a_last = torch.exp(L[:, :, -1].float())                              # (B,nc,H)
+    # pass 2
+    h, starts = state.float(), []
+    for n in range(nc):
+        starts.append(h)
+        h = a_last[:, n, :, None, None] * h + d_h[:, n]
+    h_prev = torch.stack(starts, dim=1)                                  # (B,nc,H,P,N)
+    # pass 3
+    decay = torch.exp(torch.clamp((L[:, :, :, None] - L[:, :, None, :]).float(), max=0.0))
+    mask = torch.tril(torch.ones((chunk, chunk)))[None, None, :, :, None]
+    scores = cb[..., None] * decay * dtc[:, :, None] * mask              # (B,nc,t,s,H)
+    intra = torch.einsum("bntsh,bnshp->bnthp", scores, xc)
+    cross = torch.einsum("bntk,bnhpk->bnthp", Cc, h_prev)
+    y = intra + torch.exp(L.float())[..., None] * cross + D.float()[:, None] * xc
+    return y.reshape(B, nc * chunk, H, P)[:, :T], h
+
+
+REHEARSAL = [((2, 64, 2, 16, 8), 16), ((1, 45, 4, 8, 16), 16), ((1, 45, 4, 8, 16), 32),
+             ((2, 7, 3, 8, 8), 32), ((1, 100, 2, 24, 12), 32)]
+
+
+@pytest.mark.parametrize("shape,chunk", REHEARSAL,
+                         ids=lambda v: "B{}T{}H{}P{}N{}".format(*v) if isinstance(v, tuple) else f"c{v}")
+def test_state_passing_split_matches_reference(reference, shape, chunk):
+    """The kernel's three passes against the reference's Pallas kernel in
+    interpret mode (5e-4): T a chunk multiple, ragged, and shorter than one
+    chunk; widths that are multiples of 4 but not of 8."""
+    jnp, _, r_pallas, _ = reference
+    arrays = make_inputs(*shape, seed=sum(shape) + chunk)
+    y_ref, h_ref = r_pallas(*(jnp.asarray(a) for a in arrays), chunk=chunk, interpret=True)
+    y, h = ssd_state_passing(*_both(arrays), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=ATOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_state_passing_split_keeps_large_decays_accurate(chunk):
+    """dt up to ~500, as zamba2-1.2b's activations give it: the split with L in
+    fp64 stays within 5e-4 of max(1, magnitude) of the fp64 evaluation, where
+    the fp32 chunked form (the reference's arithmetic) does not."""
+    x, dt, A, Bm, C, D, h0 = _both(make_inputs(1, 96, 4, 16, 16, seed=11))
+    g = torch.Generator().manual_seed(0)
+    dt = dt * torch.rand(dt.shape, generator=g) ** 4 * 250
+    A = A * 2
+    args = (x, dt, A, Bm, C, D, h0)
+    y, h = ssd_state_passing(*args, chunk=chunk)
+    y64, h64 = _ssd_chunked(*(t.double() for t in args), chunk=chunk)
+    y32, h32 = _ssd_chunked(*args, chunk=chunk)
+
+    def rel(out, ref):
+        return (out.double() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+
+    assert dt.max() > 100
+    assert rel(y, y64) <= ATOL and rel(h, h64) <= ATOL
+    assert max(rel(y32, y64), rel(h32, h64)) > rel(y, y64)
+
+
 def test_cpu_tensors_take_the_plain_version():
     arrays = _both(make_inputs(1, 45, 4, 8, 16, seed=4))
     before = kernel_mod.launches
@@ -170,3 +254,55 @@ def test_cuda_kernel_matches_plain_on_the_path_shape():
     y_ref, h_ref = _ssd_chunked(x, dt, A, Bm, C, D, h0, chunk=32)
     torch.testing.assert_close(y, y_ref, atol=ATOL, rtol=0)
     torch.testing.assert_close(h, h_ref, atol=ATOL, rtol=0)
+
+
+EDGES = [((1, 1, 2, 8, 8), 16), ((1, 1, 2, 8, 8), 32), ((2, 16, 3, 16, 8), 16),
+         ((2, 32, 3, 8, 16), 32), ((1, 33, 2, 64, 64), 32), ((2, 45, 2, 24, 40), 16),
+         ((1, 77, 5, 64, 8), 32), ((1, 70, 2, 8, 64), 16), ((2, 130, 4, 32, 32), 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,chunk", EDGES,
+                         ids=lambda v: "B{}T{}H{}P{}N{}".format(*v) if isinstance(v, tuple) else f"c{v}")
+def test_cuda_kernel_matches_plain_at_its_edges(shape, chunk, dtype):
+    """The three passes' edges: T = 1, one whole chunk, one chunk and a
+    position, ragged T; both compiled chunks; P and N from 8 to 64, tiles of
+    pass 1 and 3 left idle (P, N < 64) and widths no multiple of 8. Against
+    the step-by-step oracle on the same (rounded) inputs, at 5e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, dt, A, Bm, C, D, h0 = (t.cuda() for t in _both(make_inputs(*shape, seed=sum(shape))))
+    x, Bm, C = (t.to(getattr(torch, dtype)) for t in (x, Bm, C))
+    before = kernel_mod.launches
+    y, h = ssd(x, dt, A, Bm, C, D, h0, impl="pallas", chunk=chunk)
+    torch.cuda.synchronize()
+    assert kernel_mod.launches == before + 1
+    assert tuple(y.shape) == tuple(x.shape) and y.dtype == torch.float32
+    y_ref, h_ref = ssd_ref(x, dt, A, Bm, C, D, h0)
+    torch.testing.assert_close(y, y_ref, atol=ATOL, rtol=0)
+    torch.testing.assert_close(h, h_ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_wrapper_rejects_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, dt, A, Bm, C, D, h0 = (t.cuda() for t in _both(make_inputs(1, 20, 2, 8, 16, seed=12)))
+    with pytest.raises(ValueError, match="chunk"):
+        kernel_mod.ssd_pallas(x, dt, A, Bm, C, D, h0, chunk=8)
+    wide = torch.zeros((1, 20, 2, 80), device="cuda")
+    with pytest.raises(ValueError, match="P=80"):
+        kernel_mod.ssd_pallas(wide, dt, A, Bm, C, D, torch.zeros((1, 2, 80, 16), device="cuda"))
+    odd = torch.zeros((1, 20, 2, 6), device="cuda")
+    with pytest.raises(ValueError, match="P=6"):
+        kernel_mod.ssd_pallas(odd, dt, A, Bm, C, D, torch.zeros((1, 2, 6, 16), device="cuda"))
+    shifted = torch.zeros(h0.numel() + 1, device="cuda")[1:].view(h0.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel_mod.ssd_pallas(x, dt, A, Bm, C, D, shifted)
+    with pytest.raises(ValueError, match="dtypes"):
+        kernel_mod.ssd_pallas(x.bfloat16(), dt, A, Bm, C, D, h0)
+    with pytest.raises(ValueError, match="float32"):
+        kernel_mod.ssd_pallas(x, dt.bfloat16(), A, Bm, C, D, h0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel_mod.ssd_pallas(x.transpose(2, 3), dt, A, Bm, C, D, h0)
