@@ -5,15 +5,20 @@ printed with the wall time of the phase before it:
   1. card: name and power limit, torch/CUDA versions; the four CUDA kernels
      built together, one nvcc per source, each in its own thread, with
      ptxas's registers and spills for every instantiation, and 0 spill bytes
-     checked for the scans' instantiations on the prefill paths;
+     checked for the scans' instantiations on the prefill paths; then each
+     kernel's wrapper called under grad with an input that requires grad,
+     which must raise before it launches;
   2. the paged-attention kernel against its plain PyTorch version on the card,
-     at the reference's sweep shapes, the serving shapes and the edges of its
-     64-token partitions;
+     at the reference's sweep shapes, the serving shapes, the edges of its
+     64-token partitions, and the published group sizes and head dims past
+     the first four (G 7 at hd 128, G 12 at hd 192, hd 80) and olmoe-1b-7b's
+     serving shape;
   3. times (median of CUDA-event-timed runs, L2 flushed before each) of that
      kernel, its plain version and a library yardstick, beside the byte bound
      and the bytes a second the kernel reached: at the serving path's shape
-     (one partition), a table of two partitions and a long context; with the
-     wrapper's host time a call and a profile of flushed calls;
+     (one partition), a table of two partitions and a long context, with the
+     wrapper's host time a call and a profile of flushed calls; then at
+     olmoe-1b-7b's serving shape and at G 7 and G 12;
   4. the serving path at full width: ``repro_torch.launch.serve`` serving
      gemma3-1b (26 layers, d_model 1152) with random bf16 weights, KV pages
      preempted into pinned host memory and promoted back; the kernel's launch
@@ -22,26 +27,35 @@ printed with the wall time of the phase before it:
      with the plain version from the same pools;
   5. the flash-attention kernel against its plain version: the reference's
      sweep (fp32 and bf16, causal and not), the bf16 tensor-core kernel's
-     edges (every head dim, ragged S, windows about a tile, non-causal) and
-     the prefill shapes of gemma3-1b and zamba2-1.2b, in fp32 and in bf16;
+     edges (every head dim, ragged S, windows about a tile, non-causal), hd
+     80 (non-causal) and 192 (causal and sliding), and the prefill shapes of
+     gemma3-1b, zamba2-1.2b and olmoe-1b-7b, in fp32 and in bf16;
   6. the Mamba2 SSD kernel against its plain versions: the reference's sweep
      and zamba2-1.2b's shape;
   7. the WKV6 kernel against its plain versions: the reference's sweep and
      rwkv6-3b's shape;
   8. times of the three prefill kernels, their plain versions and, for
-     attention, SDPA as a yardstick, beside the bound at the path shapes (for
-     the scans both the operations and the bytes bound), the flops a second
-     flash attention reached, and a profile of flushed calls of each scan that
-     gives each of its passes' own device time;
-  9. the prefill path at full width for gemma3-1b, zamba2-1.2b and then
-     rwkv6-3b, each model freed before the next is built:
+     attention, SDPA as a yardstick, beside the bound at the path shapes and
+     at hd 80 and 192 (for the scans both the operations and the bytes
+     bound), the flops a second flash attention reached, and a profile of
+     flushed calls of each scan that gives each of its passes' own device
+     time;
+  9. the prefill path at full width for gemma3-1b, zamba2-1.2b, rwkv6-3b and
+     then olmoe-1b-7b (MoE, moe_impl="ep"), each model freed before the next
+     is built:
      ``forward(collect_kv=True, last_only=True)`` at B=2 x 2048 tokens with
      the kernels, checked launch counts per forward, then 16 ``decode_step``s
      from the prefill's caches; a torch.profiler breakdown of one forward;
      every kernel call of one more prefill held against its plain version on
      the same inputs; the same prefill with the plain versions swapped in,
      compared (for zamba2 also plain against plain at another SSD chunk; for
-     rwkv6-3b within stated bounds on the logits and the WKV states).
+     rwkv6-3b within stated bounds on the logits and the WKV states). For
+     olmoe-1b-7b also every MoE call of a prefill held against the dense
+     oracle on the same activations, one layer in fp32 against it, the
+     device time of the expert products and of the routing, sort and scatter
+     around them, and the host time of the group sizes' copy;
+ 10. the serving path at full width again, for olmoe-1b-7b (16 layers, 64
+     experts top-8) through the same engine set-up as phase 4.
 The last two lines are a JSON ``kernels`` record and a JSON result line.
 
 Float32 matmuls run in full precision (TF32 off), so fp32 comparisons on the
@@ -82,6 +96,18 @@ WKV_RTOL = 1e-4
 # random weights, so the bf16 comparison is printed beside the plain forms'
 # own spread and not bounded.
 RWKV_FP32_LOGIT_ATOL, RWKV_FP32_STATE_RTOL = 5e-3, 1e-3
+# An MoE call of a bf16 prefill (moe_impl="ep") against the dense oracle on
+# the same activations, element by element: |ep - dense| <= (k + 4) u S, u =
+# 2^-8 the bf16 unit roundoff and S = sum_e w_e |y_e| the sum of the k
+# weighted expert outputs' magnitudes. The oracle sums its terms in fp32 and
+# rounds once (u S); ep rounds each product w_e y_e (u S in all) and each of
+# the k adds of its bf16 scatter-add (k u S); an expert output rounded to the
+# other side of a bf16 boundary by another summation order adds 2 u S. A
+# dropped assignment or a wrong expert moves an element by a whole term.
+MOE_BF16_ROUNDINGS = 4
+# One full-width MoE layer in fp32, ep against dense: 1e-4 of max |dense|
+# (fp32 sums in other orders; nothing is rounded to bf16).
+MOE_FP32_RTOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -230,6 +256,49 @@ def check_path_spills(logs: dict) -> None:
             check(found[hits[0]] == 0, f"{entry} spills {found[hits[0]]} bytes")
 
 
+def grad_refusal() -> None:
+    """Each CUDA wrapper, called under grad with an input that requires grad,
+    raises NotImplementedError before it launches; under no_grad it runs."""
+    phase("grad refusal: each kernel under grad")
+    mods = kernel_modules()
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    table = torch.arange(4, dtype=torch.int32, device="cuda").reshape(2, 2)
+    lengths = torch.tensor([5, 12], dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_attention": (lambda q: mods["flash_attention"].flash_attention(
+            q, rn(1, 16, 2, 64), rn(1, 16, 2, 64), window=WINDOW_GLOBAL, scale=0.125),
+            rn(1, 16, 2, 64)),
+        "paged_attention": (lambda q: mods["paged_attention"].paged_attention(
+            q, rn(4, 8, 2, 64), rn(4, 8, 2, 64), table, lengths, WINDOW_GLOBAL, scale=0.125),
+            rn(2, 2, 64)),
+        "mamba2_ssd": (lambda x: mods["mamba2_ssd"].ssd_pallas(
+            x, rn(1, 20, 2).abs(), -rn(2).abs(), rn(1, 20, 8), rn(1, 20, 8), rn(2),
+            rn(1, 2, 8, 8)), rn(1, 20, 2, 8)),
+        "wkv6": (lambda r: mods["wkv6"].wkv6_pallas(
+            r, rn(1, 20, 2, 16), rn(1, 20, 2, 16), torch.rand((1, 20, 2, 16), device="cuda"),
+            rn(2, 16), rn(1, 2, 16, 16)), rn(1, 20, 2, 16)),
+    }
+    for name, (call, x) in calls.items():
+        before = mods[name].launches
+        try:
+            call(x.requires_grad_())
+        except NotImplementedError as e:
+            check("ROADMAP A.9" in str(e), f"{name}: the refusal does not name A.9: {e}")
+        else:
+            raise RuntimeError(f"chip_smoke: {name} ran under grad with an input "
+                               f"that requires grad")
+        check(mods[name].launches == before, f"{name} launched before refusing")
+        with torch.no_grad():
+            call(x)
+        torch.cuda.synchronize()
+        check(mods[name].launches == before + 1, f"{name} did not launch under no_grad")
+        print(f"  {name}: raises NotImplementedError under grad, launches under no_grad")
+
+
 def kernel_vs_plain(ops, ref):
     """Max |kernel - plain| over the reference sweep and the serving shapes."""
     phase("kernel vs plain version")
@@ -258,6 +327,17 @@ def kernel_vs_plain(ops, ref):
             cases.append(((B, 4, 1, 256, 8), lengths, window, torch.bfloat16, 1e-2))
             cases.append(((B, 4, 1, 256, 8), lengths, window, torch.float32, 2e-5))
     cases.append(((3, 8, 2, 64, 16), [1, 200, 2000], 130, torch.float32, 2e-5))
+    # Published groups and head dims past {1, 2, 4, 8} x {32, 64, 128, 256}:
+    # deepseek-coder-33b's G 7 at hd 128, nemotron-4-340b's G 12 at hd 192 and
+    # hubert-xlarge's hd 80, each with one partition and with several; and
+    # olmoe-1b-7b's serving shape (N16 K16 hd128, page 8, contexts to 40).
+    for (B, N, K, hd), lengths in (((2, 56, 8, 128), [24, 40]), ((2, 56, 8, 128), [40, 700]),
+                                   ((2, 96, 8, 192), [24, 40]), ((2, 96, 8, 192), [130, 1000]),
+                                   ((2, 16, 16, 80), [24, 40]), ((3, 16, 16, 80), [1, 65, 300]),
+                                   ((2, 16, 16, 128), [24, 40])):
+        for window in (WINDOW_GLOBAL, 100):
+            cases.append(((B, N, K, hd, 8), lengths, window, torch.bfloat16, 1e-2))
+            cases.append(((B, N, K, hd, 8), lengths, window, torch.float32, 2e-5))
     for i, ((B, N, K, hd, page), lengths, window, q_dtype, tol) in enumerate(cases):
         q, kp, vp, table, lens = paged_inputs(B, N, K, hd, page, lengths, q_dtype, seed=i)
         out = ops.paged_attention(q, kp, vp, table, lens, window, scale=hd ** -0.5)
@@ -288,14 +368,19 @@ def host_us(fn, calls: int = 200) -> float:
 def timings(ops, ref, flush):
     """Kernel, plain version and SDPA yardstick at three shapes: the serving
     path's own (a 5-page table, one partition, no combine), a 16-page table
-    (two partitions and the combine) and a long context."""
+    (two partitions and the combine) and a long context; then olmoe-1b-7b's
+    serving shape, and G 7 (deepseek-coder-33b) and G 12 at hd 192
+    (nemotron-4-340b) at a 1024-token context, without the profiles."""
     from repro_torch.kernels.paged_attention.paged_attention import num_partitions
 
     phase("times")
     rows = {}
     for label, (B, N, K, hd, page), length in [("serving", (2, 4, 1, 256, 8), 40),
                                                ("two_partitions", (4, 4, 1, 256, 8), 128),
-                                               ("long", (8, 4, 1, 256, 8), 4096)]:
+                                               ("long", (8, 4, 1, 256, 8), 4096),
+                                               ("olmoe_serving", (2, 16, 16, 128, 8), 40),
+                                               ("g7_hd128", (2, 56, 8, 128, 8), 1024),
+                                               ("g12_hd192", (2, 96, 8, 192, 8), 1024)]:
         lengths = [length] * B
         parts = num_partitions(-(-length // page), page)
         q, kp, vp, table, lens = paged_inputs(B, N, K, hd, page, lengths, torch.bfloat16,
@@ -324,6 +409,8 @@ def timings(ops, ref, flush):
         # Whether `ms` holds host time: the wrapper's enqueue against the
         # flush's device time, and the kernels' own device time after a flush.
         print(f"  {label}: wrapper enqueue {host_us(kernel):.1f} us a call on the host")
+        if label not in ("serving", "two_partitions", "long"):
+            continue
 
         def flushed_calls():
             for _ in range(20):
@@ -346,15 +433,17 @@ def print_profile(prof, wall_us: float, what: str) -> None:
     busy_us = sum(t for t, _ in by_name.values())
     if busy_us == 0:
         print(f"profile of {what}: the profiler recorded no device time")
-        return
+        return 0.0, by_name
     print(f"profile of {what}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms, device idle share {1 - busy_us / wall_us:.3f}")
     for name, (t, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {t / 1e3:9.3f} ms {t / busy_us:6.1%} x{count:5d}  {name[:90]}")
+    return busy_us, by_name
 
 
-def profiled(fn, what: str) -> None:
-    """Run `fn` once under torch.profiler and print where the device time went."""
+def profiled(fn, what: str):
+    """Run `fn` once under torch.profiler and print where the device time went.
+    Returns the device's busy time in us and {kernel name: (us, count)}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -363,7 +452,7 @@ def profiled(fn, what: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    print_profile(prof, wall_us, what)
+    return print_profile(prof, wall_us, what)
 
 
 def profile_steps(eng, args, n_steps: int = 20) -> None:
@@ -381,23 +470,33 @@ def profile_steps(eng, args, n_steps: int = 20) -> None:
     profiled(steps, f"{n_steps} steps")
 
 
-def main_path(ops, ref):
-    phase("main path: gemma3-1b full width, tiered paged KV")
+def main_path(ops, ref, arch: str = "gemma3-1b"):
+    """Serve `arch` at full width through ``repro_torch.launch.serve``: 3
+    requests of 24 + 16 tokens, page 8, 10 hot slots, max_batch 2, Policy1.
+    Returns the paged kernel's launches."""
+    phase(f"main path: {arch} full width, tiered paged KV")
     from repro_torch.core import emucxl
     from repro_torch.launch import serve
     import repro_torch.serving.engine as engine_mod
     import repro_torch.serving.paged_decode as pd_mod
 
-    args = serve.parse_args(["--no-reduced", "--requests", "3", "--prompt-len", "24",
-                             "--max-new", "16", "--page-size", "8", "--max-batch", "2",
-                             "--slots", "10", "--max-steps", "400", "--device", "cuda"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    if emucxl.default_instance()._initialized:   # a fresh pool for each served model
+        emucxl.default_instance().exit()
+    args = serve.parse_args(["--arch", arch, "--no-reduced", "--requests", "3",
+                             "--prompt-len", "24", "--max-new", "16", "--page-size", "8",
+                             "--max-batch", "2", "--slots", "10", "--max-steps", "400",
+                             "--device", "cuda"])
     t0 = time.perf_counter()
     eng = serve.build(args)
     torch.cuda.synchronize()
     cfg = eng.cfg
+    moe = (f" experts {cfg.num_experts} top-{cfg.experts_per_token} expert F{cfg.moe_d_ff}, "
+           f"moe_impl {eng.opts.moe_impl!r}" if cfg.moe else "")
     print(f"built engine in {time.perf_counter() - t0:.2f} s: {cfg.name} "
           f"L{cfg.num_layers} D{cfg.d_model} N{cfg.num_heads} K{cfg.num_kv_heads} "
-          f"hd{cfg.resolved_head_dim} F{cfg.d_ff} V{cfg.vocab_size}")
+          f"hd{cfg.resolved_head_dim} F{cfg.d_ff} V{cfg.vocab_size}{moe}")
     lib = eng.pool.session.lib
     # Observe (not alter) each step's logits for finiteness, without a host sync.
     finite = []
@@ -466,7 +565,7 @@ def main_path(ops, ref):
             logits[name] = [
                 pd_mod.paged_decode_step(eng.params, cfg, k_pool, v_pool, table,
                                          torch.full((B,), t, dtype=torch.int32, device="cuda"),
-                                         toks[:, t : t + 1])[0]
+                                         toks[:, t : t + 1], eng.opts)[0]
                 for t in range(n_steps)]
         finally:
             pd_mod.paged_attention = ops.paged_attention
@@ -477,6 +576,7 @@ def main_path(ops, ref):
     check(all(bool(torch.isfinite(x).all()) for x in logits["kernel"]), "non-finite logits")
     print(f"decode {n_steps} steps x B{B}, kernel vs plain attention: max |logit diff| "
           f"{diff:.4e}, argmax agreement {agree:.3f}")
+    del eng
     return launches
 
 
@@ -521,10 +621,17 @@ def max_rel(out, ref) -> float:
 
 
 # gemma3-1b: 4 query heads over 1 KV head at hd 256, sliding 512 and global;
-# zamba2-1.2b's shared attention: 32 heads at hd 64. B=2 x 2048 as on the path.
+# zamba2-1.2b's shared attention: 32 heads at hd 64; olmoe-1b-7b: 16 heads
+# over 16 at hd 128. B=2 x 2048 as on the path.
 FLASH_PATH = {"gemma3_global": ((2, 2048, 4, 1, 256), WINDOW_GLOBAL),
               "gemma3_sliding": ((2, 2048, 4, 1, 256), 512),
-              "zamba2": ((2, 2048, 32, 32, 64), WINDOW_GLOBAL)}
+              "zamba2": ((2, 2048, 32, 32, 64), WINDOW_GLOBAL),
+              "olmoe": ((2, 2048, 16, 16, 128), WINDOW_GLOBAL)}
+# Head dims past {32, 64, 128, 256} at their published configs' widths, on no
+# path yet: hubert-xlarge (16 heads of 80, non-causal) and nemotron-4-340b (96
+# query heads over 8 KV heads of 192, causal). (shape, window, causal)
+FLASH_WIDE = {"hubert_hd80": ((2, 2048, 16, 16, 80), WINDOW_GLOBAL, False),
+              "nemotron_hd192": ((1, 2048, 96, 8, 192), WINDOW_GLOBAL, True)}
 SSD_PATH = (2, 2048, 64, 64, 64)     # zamba2-1.2b: B, T, H, P, N at chunk 32
 WKV_PATH = (2, 2048, 40, 64, 64)     # rwkv6-3b: B, T, H, K, V at chunk 16
 
@@ -543,6 +650,14 @@ def flash_vs_plain():
             cases.append((shape, window, True, torch.float32, 2e-5, 0.0))
             cases.append((shape, window, True, torch.bfloat16, 2e-2, 0.0))
     cases.append(((2, 128, 4, 4, 64), WINDOW_GLOBAL, False, torch.float32, 2e-5, 0.0))
+    # hd 80 (non-causal, hubert's case; rows padded to 128 in shared memory)
+    # and hd 192 (causal and sliding): fp32 at 2e-5, bf16 within one bf16 ulp.
+    for shape, window, causal in (((2, 1000, 16, 16, 80), WINDOW_GLOBAL, False),
+                                  ((1, 1000, 4, 2, 80), 100, True),
+                                  ((1, 1000, 12, 1, 192), WINDOW_GLOBAL, True),
+                                  ((1, 1000, 12, 1, 192), 100, True)):
+        cases.append((shape, window, causal, torch.float32, 2e-5, 0.0))
+        cases.append((shape, window, causal, torch.bfloat16, BF16_ATOL, BF16_RTOL))
     # The bf16 tensor-core kernel's edges within one bf16 ulp: every head dim,
     # S not a multiple of its tiles, windows about a 64-key tile, non-causal.
     for hd in (32, 64, 128, 256):
@@ -644,16 +759,17 @@ def wkv6_vs_plain():
     return worst
 
 
-def flash_flops(B, S, N, hd, window):
-    """Flops the function needs: 4 * hd per unmasked causal (q, k) pair and head."""
-    pairs = sum(q - max(0, q - window + 1) + 1 for q in range(S))
+def flash_flops(B, S, N, hd, window, causal=True):
+    """Flops the function needs: 4 * hd per unmasked (q, k) pair and head
+    (T = S; every pair when not causal)."""
+    pairs = sum(q - max(0, q - window + 1) + 1 for q in range(S)) if causal else S * S
     return 4 * B * N * hd * pairs
 
 
-def flash_bound_ms(B, S, N, K, hd, window, elem_bytes, peak):
+def flash_bound_ms(B, S, N, K, hd, window, elem_bytes, peak, causal=True):
     """Least time: `flash_flops` over the dtype's peak; bytes q, k, v read and
     the output written once."""
-    t_ops = flash_flops(B, S, N, hd, window) / peak * 1e3
+    t_ops = flash_flops(B, S, N, hd, window, causal) / peak * 1e3
     t_bytes = (2 * B * S * N * hd + 2 * B * S * K * hd) * elem_bytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -711,25 +827,29 @@ def prefill_timings(flush):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for label, ((B, S, N, K, hd), window) in FLASH_PATH.items():
+    shapes = {**{k: (*v, True) for k, v in FLASH_PATH.items()}, **FLASH_WIDE}
+    for label, ((B, S, N, K, hd), window, causal) in shapes.items():
         q, k, v = flash_inputs(B, S, N, K, hd, torch.bfloat16, seed=200)
         scale = hd ** -0.5
-        ms = time_ms(lambda: flash_attention(q, k, v, window=window, scale=scale), flush)
-        plain = time_ms(lambda: attention_ref(q, k, v, window, scale=scale), flush)
+        ms = time_ms(lambda: flash_attention(q, k, v, window=window, scale=scale,
+                                             causal=causal), flush)
+        plain = time_ms(lambda: attention_ref(q, k, v, window, scale=scale, causal=causal),
+                        flush)
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(N // K, 2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(N // K, 2).transpose(1, 2).contiguous()
         if window >= S:
-            lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale), flush)
+            lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal, scale=scale), flush)
         else:
             pos = torch.arange(S, device="cuda")
             mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
             lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale), flush)
-        bound, bound_by = flash_bound_ms(B, S, N, K, hd, window, 2, BF16_FLOPS_PER_S)
+        bound, bound_by = flash_bound_ms(B, S, N, K, hd, window, 2, BF16_FLOPS_PER_S, causal)
         rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
                        "bound_by": bound_by}
-        flops = flash_flops(B, S, N, hd, window)
-        print(f"  flash {label}: B{B} S{S} N{N} K{K} hd{hd} window {window} bf16: "
+        flops = flash_flops(B, S, N, hd, window, causal)
+        print(f"  flash {label}: B{B} S{S} N{N} K{K} hd{hd} window {window} "
+              f"{'causal' if causal else 'non-causal'} bf16: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
               f"{bound_by} bound {bound:.4f} ms; kernel {flops / ms / 1e9:.1f} TFLOP/s, "
               f"sdpa {flops / lib / 1e9:.1f} TFLOP/s ({flops / 1e9:.2f} GFLOP)")
@@ -779,7 +899,7 @@ def decode_state_from_prefill(tf, params, cfg, caches, B, S, max_len):
     first S positions, the Mamba2 and RWKV6 states taken as they are."""
     state = tf.init_decode_state(params, cfg, B, max_len)
     state["lengths"].fill_(S)
-    for key in ("kv", "shared_kv"):
+    for key in ("kv", "dense_kv", "shared_kv"):
         if key in caches:
             for dst, src in zip(state[key], caches[key], strict=True):
                 dst[:, :, :S] = src
@@ -798,6 +918,7 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     from repro_torch.kernels.rwkv6_scan.ops import _wkv6_chunked
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import mamba2 as m2
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import rwkv6 as rk
     from repro_torch.models import transformer as tf
 
@@ -813,7 +934,9 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     dims = {"hybrid": f" ssm H{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} "
                       f"P{cfg.ssm_head_dim} N{cfg.ssm_state}",
             "ssm": f" wkv H{cfg.d_model // cfg.rwkv_head_dim} hd{cfg.rwkv_head_dim} "
-                   f"decay LoRA {cfg.rwkv_decay_lora}"}.get(cfg.family, "")
+                   f"decay LoRA {cfg.rwkv_decay_lora}",
+            "moe": f" experts {cfg.num_experts} top-{cfg.experts_per_token} expert "
+                   f"F{cfg.moe_d_ff}"}.get(cfg.family, "")
     print(f"built {cfg.name} in {time.perf_counter() - t0:.2f} s: L{cfg.num_layers} "
           f"D{cfg.d_model} N{cfg.num_heads} K{cfg.num_kv_heads} hd{cfg.resolved_head_dim} "
           f"F{cfg.d_ff} V{cfg.vocab_size}{dims}, "
@@ -821,7 +944,8 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     toks = torch.randint(0, cfg.vocab_size, (B, S + steps), dtype=torch.int32, device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
     prompt = toks[:, :S]
-    opts = tf.ModelOptions(attn_impl="flash", ssd_impl="pallas", wkv_impl="pallas")
+    opts = tf.ModelOptions(attn_impl="flash", ssd_impl="pallas", wkv_impl="pallas",
+                           moe_impl="ep")
 
     def forward(p, c):
         return tf.forward(p, c, prompt, opts, collect_kv=True, last_only=True)
@@ -861,12 +985,13 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     print(f"decode {steps} steps x B{B} from the prefill caches: median step "
           f"{statistics.median(step_ms):.2f} ms (first {step_ms[0]:.2f} ms), logits finite")
     del state, step_logits
-    profiled(prefill, f"one {arch} prefill forward")
+    busy_us, by_name = profiled(prefill, f"one {arch} prefill forward")
 
     # Each kernel is reached through a module attribute; the checks and the
     # plain prefills put other functions there and restore the kernels after.
+    # The MoE layer (no kernel) is reached the same way, for its check.
     hooks = {"flash_attention": (attn_mod, "flash_attention"), "mamba2_ssd": (m2, "ssd"),
-             "wkv6": (rk, "wkv6")}
+             "wkv6": (rk, "wkv6"), "moe": (moe_mod, "moe_layer")}
     kernels = {name: getattr(mod, attr) for name, (mod, attr) in hooks.items()}
 
     def run_with(fns, run=prefill):
@@ -890,9 +1015,12 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     # so the fp32 plain form is itself off by ~1e-3 (printed beside). WKV6:
     # y and the state each within WKV_RTOL of the plain output's own largest
     # |value|, with no floor (they sit near 1e-2).
+    # MoE: each call (moe_impl="ep") within MOE_BF16_ROUNDINGS of the dense
+    # oracle on the same activations, and its aux loss equal to the oracle's.
     worst = {"flash_attention": 0.0, "flash share of tol": 0.0, "mamba2_ssd": 0.0,
              "plain fp32 ssd": 0.0, "max dt": 0.0, "wkv6": 0.0, "max |wkv y|": 0.0,
-             "max |wkv state|": 0.0}
+             "max |wkv state|": 0.0, "moe": 0.0, "moe share of tol": 0.0,
+             "moe aux diff": 0.0}
 
     def rel_err(out, ref):
         return (out.double() - ref.double()).abs().max().item() / max(
@@ -925,18 +1053,42 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
         worst["max |wkv state|"] = max(worst["max |wkv state|"], s_ref.abs().max().item())
         return y, s
 
+    def moe_checked(p, x, cfg_, impl="ep"):
+        out, aux = kernels["moe"](p, x, cfg_, impl=impl)
+        dense, aux_dense = moe_mod.moe_dense(p, x, cfg_)
+        # S = sum_e w_e |y_e|, from the oracle's own pieces, in fp32.
+        xt = x.reshape(-1, x.shape[-1])
+        top_p, top_e, _ = moe_mod._route(p["router"], xt, cfg_)
+        w = torch.zeros((xt.shape[0], cfg_.num_experts), device=x.device)
+        w = w.scatter_add_(1, top_e, top_p).to(x.dtype).float()
+        ted = moe_mod._expert_ffn_dense(p["w_gate"], p["w_up"], p["w_down"], xt)
+        mag = torch.einsum("te,ted->td", w, ted.float().abs_())
+        del ted
+        tol = (cfg_.experts_per_token + MOE_BF16_ROUNDINGS) * 2.0 ** -8 * mag
+        diff = (out.float() - dense.float()).reshape(mag.shape).abs()
+        worst["moe share of tol"] = max(worst["moe share of tol"],
+                                        (diff / tol.clamp_min(1e-30)).max().item())
+        worst["moe"] = max(worst["moe"], rel_err(out, dense))
+        worst["moe aux diff"] = max(worst["moe aux diff"], abs(aux.item() - aux_dense.item()))
+        return out, aux
+
     run_with({"flash_attention": flash_checked, "mamba2_ssd": ssd_checked,
-              "wkv6": wkv6_checked})
+              "wkv6": wkv6_checked, **({"moe": moe_checked} if cfg.moe else {})})
     shown = [name for name in worst if name in per_forward or
              (name == "flash share of tol" and "flash_attention" in per_forward) or
              (name in ("plain fp32 ssd", "max dt") and "mamba2_ssd" in per_forward) or
-             (name.startswith("max |wkv") and "wkv6" in per_forward)]
+             (name.startswith("max |wkv") and "wkv6" in per_forward) or
+             (name.startswith("moe") and cfg.moe)]
     print("every kernel call of a prefill vs its plain version on the same inputs, max "
           "|diff| / max(1, max |plain|) (wkv6: / max |plain|), and flash's largest "
           "|diff| / tol: " + ", ".join(f"{n} {worst[n]:.3e}" for n in shown))
     check(worst["flash share of tol"] <= 1.0, "flash_attention disagrees on the path's inputs")
     check(worst["mamba2_ssd"] <= 5e-4, "mamba2_ssd disagrees on the path's inputs")
     check(worst["wkv6"] <= WKV_RTOL, "wkv6 disagrees on the path's inputs")
+    check(worst["moe share of tol"] <= 1.0, "moe_impl='ep' disagrees with the dense oracle")
+    check(worst["moe aux diff"] <= 1e-6, "the MoE aux loss differs from the dense oracle's")
+    if cfg.moe:
+        moe_breakdown(tf, moe_mod, params, cfg, prefill, busy_us, by_name)
 
     # The whole prefill with the plain versions in place of the kernels. The
     # recurrent models are compared a second time, plain against plain with
@@ -965,7 +1117,7 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
         line = (f"prefill {what}: max |logit diff| {logit_diff:.4e} of max |logit| "
                 f"{b.abs().max().item():.4e}, argmax agreement "
                 f"{(a.argmax(-1) == b.argmax(-1)).float().mean().item():.3f}")
-        for key in ("kv", "shared_kv"):
+        for key in ("kv", "dense_kv", "shared_kv"):
             if key in ca:
                 kv_diff = max((x.float() - y.float()).abs().max().item()
                               for x, y in zip(ca[key], cb[key], strict=True))
@@ -1009,6 +1161,76 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     return counts
 
 
+def moe_breakdown(tf, moe_mod, params, cfg, prefill, busy_us, by_name) -> None:
+    """Where an MoE prefill's device time goes, and one layer held in fp32.
+
+    One more prefill records each layer's ``_local_expert_pass`` inputs. Each
+    part then runs alone on them under torch.profiler: the grouped expert
+    products (``_grouped_ffn``) and the whole routed pass, whose difference
+    is the routing, the sort and the scatter-add around the products. Flash
+    attention's share is its kernel's device time in the forward's profile."""
+    captured = []
+    local_pass = moe_mod._local_expert_pass
+
+    def capture(*args):
+        captured.append(args)
+        return local_pass(*args)
+
+    moe_mod._local_expert_pass = capture
+    try:
+        prefill()
+        torch.cuda.synchronize()
+    finally:
+        moe_mod._local_expert_pass = local_pass
+    groups = []
+    for xl, router_w, w_gate, w_up, w_down, cfg_, e_lo, e_local, capacity in captured:
+        top_p, top_e, _ = moe_mod._route(router_w, xl, cfg_)
+        sel_t, _, sizes = moe_mod._dispatch(top_p, top_e, cfg_, e_lo, e_local, capacity)
+        groups.append((xl[sel_t], w_gate, w_up, w_down, sizes))
+    layers = len(captured)
+
+    def products():
+        for g in groups:
+            moe_mod._grouped_ffn(*g)
+
+    def passes():
+        for args in captured:
+            local_pass(*args)
+
+    products()
+    passes()
+    prod_us, _ = profiled(products, f"{layers} x the grouped expert products, alone")
+    pass_us, _ = profiled(passes, f"{layers} x the routed MoE pass, alone")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    products()
+    torch.cuda.synchronize()
+    prod_wall = (time.perf_counter() - t0) * 1e3
+    sizes = groups[0][4]
+    copy_us = host_us(lambda: sizes.tolist())
+    matmuls = sum(3 * int((g[4] > 0).sum()) for g in groups)
+    flash_us = sum(t for name, (t, _) in by_name.items() if "flash_attention" in name)
+    print(f"moe: grouped expert products {prod_us / layers / 1e3:.4f} ms of device time a "
+          f"layer ({matmuls} torch.matmul launches a forward, {prod_wall / layers:.4f} ms "
+          f"of wall time a layer run alone); routing, sort and scatter "
+          f"{(pass_us - prod_us) / layers / 1e3:.4f} ms a layer; group sizes' "
+          f"device-to-host copy {copy_us:.1f} us on the host, once a layer")
+    if busy_us:
+        print(f"moe: shares of one forward's {busy_us / 1e3:.2f} ms of device time: expert "
+              f"products {prod_us / busy_us:.1%}, routing/sort/scatter "
+              f"{(pass_us - prod_us) / busy_us:.1%}, flash attention {flash_us / busy_us:.1%}")
+    # One full-width layer in fp32, ep against the dense oracle.
+    xl = captured[0][0].float()[None]
+    p32 = {k: v.float() for k, v in tf._layer(params["stack"], 0)["moe"].items()}
+    del captured, groups
+    ep, _ = moe_mod.moe_layer(p32, xl, cfg, impl="ep")
+    dense, _ = moe_mod.moe_layer(p32, xl, cfg, impl="dense")
+    rel = ((ep - dense).abs().max() / dense.abs().max()).item()
+    print(f"moe: one layer in fp32 ({xl.shape[1]} tokens), ep vs dense: max |diff| / max "
+          f"|dense| {rel:.3e} (tol {MOE_FP32_RTOL:g})")
+    check(rel <= MOE_FP32_RTOL, f"fp32 MoE layer, ep vs dense: {rel} > {MOE_FP32_RTOL}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in _leaves(v)]
@@ -1038,6 +1260,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = card()
+    grad_refusal()
     worst = kernel_vs_plain(ops, ref)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")   # > 50 MB L2
     rows = timings(ops, ref, flush)
@@ -1050,19 +1273,28 @@ def main() -> int:
     gemma = prefill_path("gemma3-1b", {"flash_attention": 26})
     zamba = prefill_path("zamba2-1.2b", {"flash_attention": 6, "mamba2_ssd": 38})
     rwkv = prefill_path("rwkv6-3b", {"wkv6": 32})
+    olmoe = prefill_path("olmoe-1b-7b", {"flash_attention": 16})
+    olmoe_launches = main_path(ops, ref, "olmoe-1b-7b")
     phase("results")
     print(json.dumps({"kernels": [
         kernel_record("paged_attention",
                       "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
                       "src/repro/kernels/paged_attention/paged_attention.py:93",
-                      launches, worst, rows["serving"],
-                      two_partitions=rows["two_partitions"], long_context=rows["long"]),
+                      launches + olmoe_launches, worst, rows["serving"],
+                      launches_by_model={"gemma3-1b": launches, "olmoe-1b-7b": olmoe_launches},
+                      two_partitions=rows["two_partitions"], long_context=rows["long"],
+                      olmoe_serving=rows["olmoe_serving"], g7_hd128=rows["g7_hd128"],
+                      g12_hd192=rows["g12_hd192"]),
         kernel_record("flash_attention",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:107",
-                      gemma["flash_attention"] + zamba["flash_attention"], worst_flash,
+                      gemma["flash_attention"] + zamba["flash_attention"]
+                      + olmoe["flash_attention"], worst_flash,
                       prefill_rows["gemma3_global"],
-                      shapes={k: prefill_rows[k] for k in FLASH_PATH}),
+                      launches_by_model={"gemma3-1b": gemma["flash_attention"],
+                                         "zamba2-1.2b": zamba["flash_attention"],
+                                         "olmoe-1b-7b": olmoe["flash_attention"]},
+                      shapes={k: prefill_rows[k] for k in (*FLASH_PATH, *FLASH_WIDE)}),
         kernel_record("mamba2_ssd",
                       "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
                       "src/repro/kernels/mamba2_ssd/mamba2_ssd.py:82",

@@ -40,14 +40,22 @@
 //   P_lo = bf16(P - P_hi), and both run into the same fp32 accumulator: the
 //   split is exact to 2^-17 of P, for 1.5x the tensor-core work. Q·K^T of bf16
 //   inputs has exact products and fp32 sums, as the plain version does.
-//   Tiles: BK = 32 keys at hd 256 (96 KB of shared memory, two blocks an SM;
-//   the O accumulator alone is 128 registers a thread), 64 below (80 KB at
-//   hd 128). The q tiles launch in reverse order, so the longest causal tiles
-//   start first.
+//   Tiles: BK = 32 keys at hd 256 and 192 (96 KB and 72 KB of shared memory;
+//   at hd 256 the O accumulator alone is 128 registers a thread), 64 below
+//   (80 KB at hd 128). The q tiles launch in reverse order, so the longest
+//   causal tiles start first.
+//   Head dims: 32, 64, 128 and 256 fill rows of 4 or a multiple of 8 chunks
+//   of 16 bytes, as the swizzle needs; so does 192 (24 chunks), loaded in 12
+//   or 6 passes of the 128 threads. hd 80 (10 chunks) sits in rows of 128
+//   (the template's DH = 80 in HD = 128): the tiles' loads copy its 10
+//   chunks a row, and every mma walks DH / 16 = 5 steps of 16 columns, so
+//   the 6 chunks past them are never read and need no zero fill; the output
+//   writes the 80 columns.
 // fp32: CUDA cores (flash_attention_fp32_kernel). The tensor cores cannot
 //   hold the reference's 2e-5 fp32 tolerance. 256 threads as a 16 x 16 grid,
 //   each owning 4 query rows and BK / 16 score columns; K, V and P tiles in
-//   shared memory, rows padded by one word.
+//   shared memory, rows padded by one word. It takes the same head dims, each
+//   a multiple of 16.
 //
 // Bound. By operations: 4 * hd flops per unmasked (q, k) pair against 2 bytes
 // read per element of q, k, v (bf16); at S = 2048 that is far above the card's
@@ -306,7 +314,7 @@ __device__ __forceinline__ void chunk_offsets(unsigned (&off)[4], int h, int key
 }
 
 template <int HD, int BK>
-struct TcTiles {
+struct TcTiles {   // HD: the width of a tile's rows in shared memory
   static constexpr int kChunks = HD / 8;    // 16-byte chunks a row
   static constexpr int kQElems = kBlockQ * HD;
   static constexpr int kKVElems = BK * HD;
@@ -315,28 +323,44 @@ struct TcTiles {
       static_cast<size_t>(kQElems + 4 * kKVElems) * sizeof(__nv_bfloat16);
 };
 
-// Copy rows [row0, row0 + ROWS) of a (rows, HD) bf16 matrix with row stride
-// `stride` into a swizzled tile; rows at or past `limit` are zero-filled. A
-// thread copies one chunk column of every kTcThreads / CH-th row, walking a
-// single pointer, so the copies cost no address registers beyond it.
-template <int ROWS, int HD>
+// Copy rows [row0, row0 + ROWS) of a (rows, DH) bf16 matrix with row stride
+// `stride` into a swizzled tile of rows HD wide (DH <= HD); rows at or past
+// `limit` are zero-filled. Where the DH / 8 chunks of a row divide the
+// threads, a thread copies one chunk column of every kTcThreads / DC-th row,
+// walking a single pointer, so the copies cost no address registers beyond
+// it; otherwise (hd 80 and 192) the threads walk the tile's chunks in order.
+template <int ROWS, int DH, int HD>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long stride, int row0, int limit, int tid) {
   constexpr int CH = HD / 8;
-  constexpr int kRowsPerPass = kTcThreads / CH;
-  static_assert(kTcThreads % CH == 0 && ROWS % kRowsPerPass == 0, "whole passes");
-  const int c = tid % CH;
-  int r = tid / CH;
-  const __nv_bfloat16* from = src + (row0 + r) * stride + c * 8;
-  const long long step = kRowsPerPass * stride;
+  constexpr int DC = DH / 8;
+  if constexpr (kTcThreads % DC == 0) {
+    constexpr int kRowsPerPass = kTcThreads / DC;
+    static_assert(ROWS % kRowsPerPass == 0, "whole passes");
+    const int c = tid % DC;
+    int r = tid / DC;
+    const __nv_bfloat16* from = src + (row0 + r) * stride + c * 8;
+    const long long step = kRowsPerPass * stride;
 #pragma unroll
-  for (; r < ROWS; r += kRowsPerPass, from += step) {
-    const bool valid = row0 + r < limit;
-    cp_async16(dst + r * HD + (c ^ swizzle_key<CH>(r)) * 8, valid ? from : src, valid);
+    for (; r < ROWS; r += kRowsPerPass, from += step) {
+      const bool valid = row0 + r < limit;
+      cp_async16(dst + r * HD + (c ^ swizzle_key<CH>(r)) * 8, valid ? from : src, valid);
+    }
+  } else {
+    static_assert(ROWS * DC % kTcThreads == 0, "whole passes");
+#pragma unroll
+    for (int i = tid; i < ROWS * DC; i += kTcThreads) {
+      const int r = i / DC, c = i % DC;
+      const bool valid = row0 + r < limit;
+      cp_async16(dst + r * HD + (c ^ swizzle_key<CH>(r)) * 8,
+                 valid ? src + (row0 + r) * stride + c * 8 : src, valid);
+    }
   }
 }
 
-template <int HD, int BK>
+// DH: the head dim of q, k, v and out in memory; HD: the width of the tiles'
+// rows in shared memory, DH rounded up to a width the swizzle takes.
+template <int DH, int HD, int BK>
 __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int S, int T_len,
@@ -344,7 +368,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
   using L = TcTiles<HD, BK>;
   constexpr int CH = L::kChunks;
   constexpr int kSTiles = BK / 8;   // n8 tiles of the score row block
-  constexpr int kOTiles = HD / 8;   // n8 tiles of the output row block
+  constexpr int kOTiles = DH / 8;   // n8 tiles of the output row block
+  static_assert(DH % 16 == 0 && DH <= HD, "mma steps of 16 columns within the row");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* kv_s = q_s + L::kQElems;   // stage st: K at 2 st, V at 2 st + 1
@@ -361,12 +386,12 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
   const int quad_col = lane & 3;     // column pair 2 tg of the mma fragments
   const int w_row = warp * 16;       // the warp's first row in the q tile
 
-  const long long q_row = static_cast<long long>(N) * HD;
-  const long long kv_row = static_cast<long long>(K) * HD;
-  const __nv_bfloat16* q_base = q + (static_cast<long long>(b) * S * N + n) * HD;
-  const __nv_bfloat16* k_base = k + (static_cast<long long>(b) * T_len * K + kv) * HD;
-  const __nv_bfloat16* v_base = v + (static_cast<long long>(b) * T_len * K + kv) * HD;
-  __nv_bfloat16* o_base = out + (static_cast<long long>(b) * S * N + n) * HD;
+  const long long q_row = static_cast<long long>(N) * DH;
+  const long long kv_row = static_cast<long long>(K) * DH;
+  const __nv_bfloat16* q_base = q + (static_cast<long long>(b) * S * N + n) * DH;
+  const __nv_bfloat16* k_base = k + (static_cast<long long>(b) * T_len * K + kv) * DH;
+  const __nv_bfloat16* v_base = v + (static_cast<long long>(b) * T_len * K + kv) * DH;
+  __nv_bfloat16* o_base = out + (static_cast<long long>(b) * S * N + n) * DH;
 
   // ldmatrix addresses. Each lane reads one row of one 8 x 8 matrix: for
   // Q (A operand) row w_row + lane % 16, chunk 2 kk + lane / 16; for K (B
@@ -391,10 +416,10 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
   int stop = (T_len + BK - 1) / BK;
   if (causal) stop = min(stop, q_end / BK + 1);
 
-  load_tile<kBlockQ, HD>(q_s, q_base, q_row, q_start, S, tid);
+  load_tile<kBlockQ, DH, HD>(q_s, q_base, q_row, q_start, S, tid);
   if (first < stop) {
-    load_tile<BK, HD>(kv_s, k_base, kv_row, first * BK, T_len, tid);
-    load_tile<BK, HD>(kv_s + L::kKVElems, v_base, kv_row, first * BK, T_len, tid);
+    load_tile<BK, DH, HD>(kv_s, k_base, kv_row, first * BK, T_len, tid);
+    load_tile<BK, DH, HD>(kv_s + L::kKVElems, v_base, kv_row, first * BK, T_len, tid);
   }
   cp_async_commit();
 
@@ -412,8 +437,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
     const int stage = (kt - first) & 1;
     if (kt + 1 < stop) {
       __nv_bfloat16* next = kv_s + (stage ^ 1) * 2 * L::kKVElems;
-      load_tile<BK, HD>(next, k_base, kv_row, (kt + 1) * BK, T_len, tid);
-      load_tile<BK, HD>(next + L::kKVElems, v_base, kv_row, (kt + 1) * BK, T_len, tid);
+      load_tile<BK, DH, HD>(next, k_base, kv_row, (kt + 1) * BK, T_len, tid);
+      load_tile<BK, DH, HD>(next + L::kKVElems, v_base, kv_row, (kt + 1) * BK, T_len, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -432,7 +457,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < DH / 16; ++kk) {
       unsigned a[4];
       ldmatrix_x4(a, q_addr + q_off[kk & 3] + (kk >> 2) * 128);
 #pragma unroll
@@ -503,7 +528,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_tc_kernel(
       split_bf16(s[2 * kt16 + 1][0], s[2 * kt16 + 1][1], p_hi[2], p_lo[2]);
       split_bf16(s[2 * kt16 + 1][2], s[2 * kt16 + 1][3], p_hi[3], p_lo[3]);
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
+      for (int dp = 0; dp < DH / 16; ++dp) {
         unsigned bv[4];
         ldmatrix_x4_trans(bv, v_addr + kt16 * 16 * kRowBytes + v_off[dp & 3] + (dp >> 2) * 128);
         mma_bf16(o[2 * dp], p_hi, bv[0], bv[1]);
@@ -553,17 +578,17 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out, 
   return cudaGetLastError();
 }
 
-template <int HD, int BK>
+template <int DH, int HD, int BK>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int B, int S,
                       int T_len, int N, int K, int window, int causal, float scale,
                       cudaStream_t stream) {
   constexpr size_t bytes = TcTiles<HD, BK>::kBytes;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<HD, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attention_tc_kernel<DH, HD, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(B * N, (S + kBlockQ - 1) / kBlockQ), block(kTcThreads);
-  flash_attention_tc_kernel<HD, BK><<<grid, block, bytes, stream>>>(
+  flash_attention_tc_kernel<DH, HD, BK><<<grid, block, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, T_len, N, K,
       window, causal, scale * kLog2e);
@@ -576,13 +601,17 @@ cudaError_t launch_hd(int hd, bool is_bf16, const void* q, const void* k, const 
 #define FLASH_ARGS q, k, v, out, B, S, T_len, N, K, window, causal, scale, stream
   switch (hd) {
     case 32:
-      return is_bf16 ? launch_tc<32, 64>(FLASH_ARGS) : launch_fp32<32, 64>(FLASH_ARGS);
+      return is_bf16 ? launch_tc<32, 32, 64>(FLASH_ARGS) : launch_fp32<32, 64>(FLASH_ARGS);
     case 64:
-      return is_bf16 ? launch_tc<64, 64>(FLASH_ARGS) : launch_fp32<64, 64>(FLASH_ARGS);
+      return is_bf16 ? launch_tc<64, 64, 64>(FLASH_ARGS) : launch_fp32<64, 64>(FLASH_ARGS);
+    case 80:
+      return is_bf16 ? launch_tc<80, 128, 64>(FLASH_ARGS) : launch_fp32<80, 64>(FLASH_ARGS);
     case 128:
-      return is_bf16 ? launch_tc<128, 64>(FLASH_ARGS) : launch_fp32<128, 32>(FLASH_ARGS);
+      return is_bf16 ? launch_tc<128, 128, 64>(FLASH_ARGS) : launch_fp32<128, 32>(FLASH_ARGS);
+    case 192:
+      return is_bf16 ? launch_tc<192, 192, 32>(FLASH_ARGS) : launch_fp32<192, 32>(FLASH_ARGS);
     case 256:
-      return is_bf16 ? launch_tc<256, 32>(FLASH_ARGS) : launch_fp32<256, 32>(FLASH_ARGS);
+      return is_bf16 ? launch_tc<256, 256, 32>(FLASH_ARGS) : launch_fp32<256, 32>(FLASH_ARGS);
     default:
       return cudaErrorInvalidValue;
   }

@@ -16,13 +16,14 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels._nvcc import F32, I32, PTR, Kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # q, k, v, out; B, S, T, N, K, hd, window, causal; scale; is_bf16; stream
 KERNEL = Kernel(SOURCE, "flash_attention_fwd", [*[PTR] * 4, *[I32] * 8, F32, I32, PTR])
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 192, 256)
 BLOCK_Q = 64
 
 launches = 0
@@ -39,6 +40,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window
     bf16, contiguous, on one card; window a Python int >= 1. Returns
     (B,S,N,hd) in q's dtype."""
     global launches
+    refuse_grad("flash_attention", q, k, v)
     window = operator.index(window)
     tensors = (q, k, v)
     _check(all(t.is_cuda for t in tensors), "all tensors must be CUDA tensors")

@@ -18,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels._nvcc import I32, PTR, Kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba2_ssd.cu"
@@ -40,6 +41,7 @@ def ssd_pallas(x, dt, A, Bm, C, D, state, *, chunk: int = 32) -> Tuple[torch.Ten
     (B,H,P,N) fp32. x, Bm, C all fp32 or all bf16. Returns y (B,T,H,P) and
     the final state (B,H,P,N), both fp32."""
     global launches
+    refuse_grad("ssd_pallas", x, dt, A, Bm, C, D, state)
     A, D = A.float().contiguous(), D.float().contiguous()
     tensors = (x, dt, A, Bm, C, D, state)
     _check(all(t.is_cuda for t in tensors), "all tensors must be CUDA tensors")

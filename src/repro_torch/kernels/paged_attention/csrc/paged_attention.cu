@@ -14,7 +14,11 @@
 //
 // Design. Grid (B * K, parts): each block takes one (sequence, kv head) and one
 // partition of kPartition tokens (whole pages), with the G query heads of the
-// kv head together, so each K/V row is read once for the group. The wrapper
+// kv head together, so each K/V row is read once for the group. G is any
+// group size from 1 to 16: the kernel is instantiated for GP, the power of two
+// at or above G, and the heads GP - G past the group carry a zero q, are never
+// written and are skipped in the softmax and the P·V sums. The head dims are
+// 32, 64, 80, 128, 192 and 256. The wrapper
 // sizes `parts` from the table's width on the host and never reads `lengths`
 // there. A block reads only the pages the reference's whole-page skip keeps
 // (page_start < length and page_start + page - 1 > q_pos - window), so the
@@ -26,17 +30,23 @@
 //      to registers, each lane holding the columns it multiplies; the
 //      partition's V rows start on their way to shared memory (16-byte
 //      cp.async), to arrive while the scores are computed;
-//   2. scores: a group of lanes takes a token and reads its K row as 16-byte
-//      loads, up to eight tokens a group in flight before any is used (at
-//      hd 256 and G <= 4 the whole partition in one round); the G partial dot
-//      products are reduced together, a butterfly that halves the heads a
-//      lane carries at each step (G - 1 + log2(lanes / G) shuffles in place of
-//      G log2(lanes));
+//   2. scores: a group of lanes (the largest power of two up to 32 that
+//      divides hd / 4: 32 at hd 128, 192 and 256, 16 at hd 64, 8 at hd 32, 4
+//      at hd 80) takes a token and reads its K row as 16-byte loads, up to
+//      eight tokens a group in flight before any is used (at hd 256 and
+//      G <= 4 the whole partition in one round); the partial dot products of
+//      up to `lanes` heads are reduced together, a butterfly that halves the
+//      heads a lane carries at each step (G - 1 + log2(lanes / G) shuffles in
+//      place of G log2(lanes)); more heads than lanes take several rounds.
+//      Where q would take more than 16 float4 registers a lane (G x hd / 4 /
+//      lanes: G above 8 at hd 128 and 256, G above 4 at hd 192 and 80) its
+//      rows are read from shared memory instead;
 //   3. softmax: warp g takes head g's scores, max, exp and sum, once for the
 //      partition (no rescaling inside it);
 //   4. acc: each thread owns four columns of a token group and reads the V
 //      rows from shared memory, for all G heads; the token groups are summed
-//      through shared memory.
+//      through shared memory. Where hd / 4 does not divide the 256 threads
+//      (hd 80 and 192) the threads past the last whole group sit this out.
 // Four barriers a partition. With one partition (the serving path: contexts
 // of at most kPartition tokens) the block writes the output itself. Otherwise
 // it writes (m, l, acc) to fp32 scratch, and paged_combine_kernel merges the
@@ -59,6 +69,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPartition = 64;           // tokens a block takes; a multiple of every page size
 constexpr int kMinPage = 8;
 constexpr int kCombineThreads = 128;
+constexpr int kMaxGroup = 16;            // query heads a kv head can have
 constexpr float kNegInf = -1.0e30f;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -129,38 +140,58 @@ __device__ __forceinline__ float reduce_heads(float (&v)[G], int lane, int& head
   return x;
 }
 
-template <int HD, int G>
+// Lanes a token takes in step 2: the largest power of two up to 32 dividing v,
+// the float4 in a row.
+__host__ __device__ constexpr int lanes_for(int v) { return v % 32 == 0 ? 32 : v % 16 == 0 ? 16 : v % 8 == 0 ? 8 : 4; }
+
+template <int HD, int GP>
 struct Smem {   // dynamic shared memory: the partition's V rows, then the acc partials
   static constexpr int kGroups = kThreads / (HD / 4);
   static constexpr size_t kBytes =
-      static_cast<size_t>(kPartition * HD + kGroups * G * HD) * sizeof(float);
+      static_cast<size_t>(kPartition * HD + kGroups * GP * HD) * sizeof(float);
 };
 
-template <int HD, int G>
-__global__ void __launch_bounds__(kThreads, 2) paged_partition_kernel(
+template <int HD, int GP>
+struct Shape {
+  static constexpr int kVec = HD / 4;                     // float4 in a row
+  static constexpr int kLanes = lanes_for(kVec);          // lanes a token takes (step 2)
+  static constexpr int kVecPerLane = kVec / kLanes;
+  static constexpr bool kQSmem = GP * kVecPerLane > 16;   // q rows from shared memory
+  static constexpr int kMinBlocks = kQSmem ? 1 : 2;
+};
+
+template <int HD, int GP>
+__global__ void __launch_bounds__(kThreads, (Shape<HD, GP>::kMinBlocks)) paged_partition_kernel(
     const void* __restrict__ q, const float* __restrict__ k_pages,
     const float* __restrict__ v_pages, const int* __restrict__ block_table,
     const int* __restrict__ lengths, void* __restrict__ out, float* __restrict__ part_ml,
     float* __restrict__ part_acc, int N, int K, int page_size, int max_pages, int window,
     float scale, int q_is_bf16) {
-  constexpr int kVec = HD / 4;                            // float4 in a row
-  constexpr int kLanes = kVec < 32 ? kVec : 32;           // lanes a token takes (step 2)
+  using Sh = Shape<HD, GP>;
+  constexpr int kVec = Sh::kVec;
+  constexpr int kLanes = Sh::kLanes;
   constexpr int kTokPerWarp = 32 / kLanes;
-  constexpr int kVecPerLane = kVec / kLanes;
-  constexpr int kGroups = Smem<HD, G>::kGroups;            // token groups (step 4)
+  constexpr int kVecPerLane = Sh::kVecPerLane;
+  constexpr bool kQSmem = Sh::kQSmem;
+  constexpr int kGR = GP < kLanes ? GP : kLanes;          // heads reduced together
+  constexpr int kGroups = Smem<HD, GP>::kGroups;           // token groups (step 4)
   // Tokens a lane group has in flight in step 2: the whole partition where K
   // and q fit in 24 float4 registers a lane (at most 4 with eight heads,
-  // whose accumulators take the room).
-  constexpr int kBudget = G >= 8 ? 4 : 24 / kVecPerLane - G;
+  // whose accumulators take the room; with q in shared memory, 16 of K).
+  constexpr int kBudget =
+      kQSmem ? 16 / kVecPerLane : (GP >= 8 ? 4 : 24 / kVecPerLane - GP);
   constexpr int kWant = kPartition / (kWarps * kTokPerWarp);
   constexpr int kKUnroll = kWant < kBudget ? kWant : kBudget;
-  static_assert(kLanes >= G && kKUnroll >= 1, "lanes cover the heads; K fits");
-  __shared__ float s_s[G][kPartition];                    // scores, then probabilities
+  static_assert(kVec % kLanes == 0 && kLanes % kGR == 0 && kKUnroll >= 1,
+                "lanes split the row and cover a round of heads; K fits");
+  __shared__ float s_s[GP][kPartition];                   // scores, then probabilities
   __shared__ int table_s[kPartition / kMinPage];
-  __shared__ float m_s[G], l_s[G];
+  __shared__ float m_s[GP], l_s[GP];
+  __shared__ __align__(16) float q_s[kQSmem ? GP * HD : 4];
   extern __shared__ __align__(16) float smem[];
   float* v_s = smem;                                      // kPartition x HD
   float* red_s = smem + kPartition * HD;                  // kGroups x (G x HD)
+  const int G = N / K;
 
   const int bk = blockIdx.x;
   const int b = bk / K;
@@ -210,12 +241,31 @@ __global__ void __launch_bounds__(kThreads, 2) paged_partition_kernel(
 
   const int tok = lane / kLanes;    // step 2: the lane group's token in a pass
   const int sub = lane % kLanes;    // and the lane's place in the group
-  float4 q_r[G][kVecPerLane];
+  constexpr int kQR = kQSmem ? 1 : GP;
+  constexpr int kQV = kQSmem ? 1 : kVecPerLane;
+  float4 q_r[kQR][kQV];
+  if constexpr (kQSmem) {
+    for (int c = tid; c < GP * kVec; c += kThreads) {
+      const int g = c / kVec;
+      reinterpret_cast<float4*>(q_s)[c] =
+          g < G ? load_q4(q, out_base + 4 * c, bf16) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+    for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int j = 0; j < kVecPerLane; ++j)
-      q_r[g][j] = load_q4(q, out_base + g * HD + 4 * (sub + kLanes * j), bf16);
+      for (int j = 0; j < kVecPerLane; ++j)
+        q_r[g][j] = g < G ? load_q4(q, out_base + g * HD + 4 * (sub + kLanes * j), bf16)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // Column block j of head g's q row for this lane.
+  auto q_at = [&](int g, int j) -> float4 {
+    if constexpr (kQSmem) {
+      return reinterpret_cast<const float4*>(q_s)[g * kVec + sub + kLanes * j];
+    } else {
+      return q_r[g][j];
+    }
+  };
   __syncthreads();
 
   auto row_of = [&](int i) {   // element offset of token start + i's K/V row
@@ -245,38 +295,41 @@ __global__ void __launch_bounds__(kThreads, 2) paged_partition_kernel(
     }
 #pragma unroll
     for (int u = 0; u < kKUnroll; ++u) {
-      float dots[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float d = 0.f;
-#pragma unroll
-        for (int j = 0; j < kVecPerLane; ++j) d += dot4(q_r[g][j], k_r[u][j]);
-        dots[g] = d;
-      }
-      int head;
-      const float dot = reduce_heads<G, kLanes>(dots, lane, head);
       const int i = base + u * kTokPerWarp + tok;
-      if (i < n && (sub & (kLanes / G - 1)) == 0)
-        s_s[head][i] = q_pos - (start + i) < window ? dot * scale : kNegInf;
+#pragma unroll
+      for (int g0 = 0; g0 < GP; g0 += kGR) {   // a round of kGR heads
+        float dots[kGR];
+#pragma unroll
+        for (int g = 0; g < kGR; ++g) {
+          float d = 0.f;
+#pragma unroll
+          for (int j = 0; j < kVecPerLane; ++j) d += dot4(q_at(g0 + g, j), k_r[u][j]);
+          dots[g] = d;
+        }
+        int head;
+        const float dot = reduce_heads<kGR, kLanes>(dots, lane, head);
+        if (i < n && (sub & (kLanes / kGR - 1)) == 0)
+          s_s[g0 + head][i] = q_pos - (start + i) < window ? dot * scale : kNegInf;
+      }
     }
   }
   __syncthreads();
 
   // 3. softmax of each head over the partition.
-  if (warp < G) {
+  for (int h = warp; h < G; h += kWarps) {
     float mx = kNegInf;
-    for (int i = lane; i < n; i += 32) mx = fmaxf(mx, s_s[warp][i]);
+    for (int i = lane; i < n; i += 32) mx = fmaxf(mx, s_s[h][i]);
     mx = warp_max(mx);
     float sum = 0.f;
     for (int i = lane; i < n; i += 32) {
-      const float p = expf(s_s[warp][i] - mx);   // masked: exp(-1e30 - mx) = 0
-      s_s[warp][i] = p;
+      const float p = expf(s_s[h][i] - mx);   // masked: exp(-1e30 - mx) = 0
+      s_s[h][i] = p;
       sum += p;
     }
     sum = warp_sum(sum);
     if (lane == 0) {
-      m_s[warp] = mx;
-      l_s[warp] = sum;
+      m_s[h] = mx;
+      l_s[h] = sum;
     }
   }
   cp_async_wait_all();   // this thread's V copies; the barrier publishes everyone's
@@ -285,23 +338,27 @@ __global__ void __launch_bounds__(kThreads, 2) paged_partition_kernel(
   // 4. acc[g][4 c .. 4 c + 3] over the thread's token group.
   const int grp = tid / kVec;
   const int c4 = tid % kVec;
-  float4 acc[G];
+  if (grp < kGroups) {
+    float4 acc[GP];
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = grp; i < n; i += kGroups) {
-    const float4 v = reinterpret_cast<const float4*>(v_s + i * HD)[c4];
+    for (int g = 0; g < GP; ++g) acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = grp; i < n; i += kGroups) {
+      const float4 v = reinterpret_cast<const float4*>(v_s + i * HD)[c4];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float p = s_s[g][i];
-      acc[g].x += p * v.x;
-      acc[g].y += p * v.y;
-      acc[g].z += p * v.z;
-      acc[g].w += p * v.w;
+      for (int g = 0; g < GP; ++g) {
+        if (g < G) {
+          const float p = s_s[g][i];
+          acc[g].x += p * v.x;
+          acc[g].y += p * v.y;
+          acc[g].z += p * v.z;
+          acc[g].w += p * v.w;
+        }
+      }
     }
-  }
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-    reinterpret_cast<float4*>(red_s + (grp * G + g) * HD)[c4] = acc[g];
+    for (int g = 0; g < GP; ++g)
+      if (g < G) reinterpret_cast<float4*>(red_s + (grp * G + g) * HD)[c4] = acc[g];
+  }
   __syncthreads();
 
   for (int i = tid; i < G * HD; i += kThreads) {
@@ -346,19 +403,19 @@ __global__ void __launch_bounds__(kCombineThreads) paged_combine_kernel(
   }
 }
 
-template <int HD, int G>
+template <int HD, int GP>
 cudaError_t launch_partitions(const void* q, const float* k_pages, const float* v_pages,
                               const int* table, const int* lengths, void* out, float* part_ml,
                               float* part_acc, int B, int N, int K, int page_size,
                               int max_pages, int window, float scale, int q_is_bf16,
                               int parts, cudaStream_t stream) {
-  constexpr size_t bytes = Smem<HD, G>::kBytes;
+  constexpr size_t bytes = Smem<HD, GP>::kBytes;
   const cudaError_t attr = cudaFuncSetAttribute(
-      paged_partition_kernel<HD, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_partition_kernel<HD, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (attr != cudaSuccess) return attr;
   const dim3 grid(B * K, parts), block(kThreads);
-  paged_partition_kernel<HD, G><<<grid, block, bytes, stream>>>(
+  paged_partition_kernel<HD, GP><<<grid, block, bytes, stream>>>(
       q, k_pages, v_pages, table, lengths, out, part_ml, part_acc, N, K, page_size,
       max_pages, window, scale, q_is_bf16);
   return cudaGetLastError();
@@ -371,13 +428,13 @@ cudaError_t launch_g(int G, const void* q, const float* k_pages, const float* v_
                      int window, float scale, int q_is_bf16, int parts, cudaStream_t stream) {
 #define PAGED_ARGS q, k_pages, v_pages, table, lengths, out, part_ml, part_acc, B, N, K, \
                    page_size, max_pages, window, scale, q_is_bf16, parts, stream
-  switch (G) {
-    case 1: return launch_partitions<HD, 1>(PAGED_ARGS);
-    case 2: return launch_partitions<HD, 2>(PAGED_ARGS);
-    case 4: return launch_partitions<HD, 4>(PAGED_ARGS);
-    case 8: return launch_partitions<HD, 8>(PAGED_ARGS);
-    default: return cudaErrorInvalidValue;
-  }
+  // The power of two at or above G; the kernel masks the heads past G.
+  if (G == 1) return launch_partitions<HD, 1>(PAGED_ARGS);
+  if (G == 2) return launch_partitions<HD, 2>(PAGED_ARGS);
+  if (G <= 4) return launch_partitions<HD, 4>(PAGED_ARGS);
+  if (G <= 8) return launch_partitions<HD, 8>(PAGED_ARGS);
+  if (G <= kMaxGroup) return launch_partitions<HD, 16>(PAGED_ARGS);
+  return cudaErrorInvalidValue;
 #undef PAGED_ARGS
 }
 
@@ -395,7 +452,8 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const voi
                                    int page_size, int max_pages, int window, float scale,
                                    int q_is_bf16, int parts, int part_tokens, void* stream) {
   const int G = K > 0 ? N / K : 0;
-  const bool shape_ok = B > 0 && K > 0 && N % K == 0 && page_size >= kMinPage &&
+  const bool shape_ok = B > 0 && K > 0 && N % K == 0 && G >= 1 && G <= kMaxGroup &&
+                        page_size >= kMinPage &&
                         (page_size & (page_size - 1)) == 0 &&
                         kPartition % page_size == 0 && max_pages > 0 && parts >= 1 &&
                         parts <= 65535 && part_tokens == kPartition &&
@@ -415,7 +473,9 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages, const voi
   switch (hd) {
     case 32: err = launch_g<32>(PAGED_ARGS); break;
     case 64: err = launch_g<64>(PAGED_ARGS); break;
+    case 80: err = launch_g<80>(PAGED_ARGS); break;
     case 128: err = launch_g<128>(PAGED_ARGS); break;
+    case 192: err = launch_g<192>(PAGED_ARGS); break;
     case 256: err = launch_g<256>(PAGED_ARGS); break;
     default: err = cudaErrorInvalidValue;
   }

@@ -21,6 +21,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels._nvcc import F32, I32, PTR, Kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
@@ -29,9 +30,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 KERNEL = Kernel(SOURCE, "paged_attention_fwd",
                 [*[PTR] * 8, *[I32] * 7, F32, *[I32] * 3, PTR])
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 192, 256)
 PAGE_SIZES = (8, 16, 32)
-GROUPS = (1, 2, 4, 8)
+GROUPS = tuple(range(1, 17))     # query heads per kv head
 PARTITION_TOKENS = 64     # tokens a block takes: kPartition in the source
 
 launches = 0
@@ -56,6 +57,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     block_table (B,max_pages) int32; lengths (B,) int32; window a Python int.
     Returns (B,N,hd) in q's dtype."""
     global launches
+    refuse_grad("paged_attention", q, k_pages, v_pages)
     window = operator.index(window)
     tensors = (q, k_pages, v_pages, block_table, lengths)
     _check(all(t.is_cuda for t in tensors), "all tensors must be CUDA tensors")
@@ -74,8 +76,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     _check(block_table.dim() == 2 and block_table.shape[0] == B,
            "block_table must be (B, max_pages)")
     _check(lengths.shape == (B,), "lengths must be (B,)")
-    _check(N % K == 0 and N // K in GROUPS, "N/K = %d/%d: group size must be in %s",
-           N, K, GROUPS)
+    _check(N % K == 0 and N // K in GROUPS, "N/K = %d/%d: group size must be in 1..%d",
+           N, K, GROUPS[-1])
     _check(hd in HEAD_DIMS, "head_dim %d not in %s", hd, HEAD_DIMS)
     _check(page in PAGE_SIZES, "page size %d not in %s", page, PAGE_SIZES)
     _check(1 <= window < 2**31, "window %d must be in [1, 2^31)", window)

@@ -17,6 +17,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels._nvcc import I32, PTR, Kernel
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu"
@@ -41,6 +42,7 @@ def wkv6_pallas(r, k, v, w, u, state, *, chunk: int = 16) -> Tuple[torch.Tensor,
     all fp32 or all bf16; w, u and state fp32. Returns y (B,T,H,V) and the
     final state (B,H,K,V), both fp32."""
     global launches
+    refuse_grad("wkv6_pallas", r, k, v, w, u, state)
     tensors = (r, k, v, w, u, state)
     _check(all(t.is_cuda for t in tensors), "all tensors must be CUDA tensors")
     _check(len({t.device for t in tensors}) == 1, "tensors are on different devices")

@@ -2,8 +2,10 @@
 
 The port of ``repro/models/transformer.py`` for three kinds of model:
 
-  * attention families (dense / vlm / audio): pre-norm blocks with GQA
-    attention (full / sliding_global / bidirectional) and an MLP;
+  * attention families (dense / moe / vlm / audio): pre-norm blocks with GQA
+    attention (full / sliding_global / bidirectional) and an MLP or an MoE
+    feed-forward; MoE models may carry leading dense layers as a separate
+    stack (kimi-k2's ``dense_stack``);
   * hybrid (zamba2): Mamba2 layers with a SHARED attention+MLP block invoked
     every ``ssm_attn_every`` layers (weights shared across invocations, one KV
     cache per invocation);
@@ -13,8 +15,7 @@ The port of ``repro/models/transformer.py`` for three kinds of model:
 Parameters keep the reference's tree and its layer-stacked ``(L, ...)``
 layout, so ``repro_torch.interop.from_reference`` maps one tree onto the
 other key for key. The reference's ``lax.scan`` over layers becomes a Python
-loop over per-layer views of the stacked parameters. MoE raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+loop over per-layer views of the stacked parameters.
 """
 
 from __future__ import annotations
@@ -31,23 +32,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as ll
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.layers import dtype_of
 
 BIG_WINDOW = np.int32(2**30)
-
-# What is not ported yet, and the ROADMAP item that ports each.
-_UNPORTED = {
-    "moe": "ROADMAP A.7 (MoE)",
-}
-
-
-def require_ported(cfg: ArchConfig) -> None:
-    """Raise unless the port runs `cfg`: every family but MoE."""
-    item = _UNPORTED["moe"] if cfg.moe else _UNPORTED.get(cfg.family)
-    if item is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet ({item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +71,7 @@ def layer_windows(cfg: ArchConfig, stack_size: int, offset: int = 0) -> np.ndarr
 
 
 # ------------------------------------------------------------------------- init
-def _init_attn_stack(gen, cfg: ArchConfig, L: int, dtype, device):
+def _init_attn_stack(gen, cfg: ArchConfig, L: int, use_moe: bool, dtype, device):
     D, F = cfg.d_model, cfg.d_ff
     N, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     p: Dict[str, Any] = {
@@ -93,12 +82,20 @@ def _init_attn_stack(gen, cfg: ArchConfig, L: int, dtype, device):
     if cfg.post_norms:
         p["post_ln1"] = ll.zeros((L, D), dtype, device)
         p["post_ln2"] = ll.zeros((L, D), dtype, device)
-    p["mlp"] = ll.init_mlp(gen, L, D, F, cfg.mlp_activation, dtype, device)
+    if use_moe:
+        p["moe"] = moe_lib.init_moe(gen, L, cfg, dtype, device)
+    else:
+        p["mlp"] = ll.init_mlp(gen, L, D, F, cfg.mlp_activation, dtype, device)
     return p
 
 
 def _tied(cfg: ArchConfig) -> bool:
     return cfg.tie_embeddings and cfg.input_mode == "tokens"
+
+
+def _first_dense(cfg: ArchConfig) -> int:
+    """Leading dense layers of an MoE model (kimi-k2: 1), 0 otherwise."""
+    return cfg.moe_first_dense if cfg.moe else 0
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Dict[str, Any]:
@@ -108,7 +105,6 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Dict[st
     differ from the reference's ``jax.random`` streams; parity tests carry the
     reference's parameters across with ``repro_torch.interop`` instead."""
     dev = resolve_device(device)
-    require_ported(cfg)
     dtype = dtype_of(cfg.param_dtype)
     D, V, L = cfg.d_model, cfg.padded_vocab, cfg.num_layers
     params: Dict[str, Any] = {}
@@ -119,9 +115,12 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Dict[st
         params["blocks"] = rk.init_rwkv6(gen, L, cfg, dtype, dev)
     elif cfg.family == "hybrid":
         params["blocks"] = m2.init_mamba2(gen, L, cfg, dtype, dev)
-        params["shared_attn"] = _init_attn_stack(gen, cfg, 1, dtype, dev)
+        params["shared_attn"] = _init_attn_stack(gen, cfg, 1, False, dtype, dev)
     else:
-        params["stack"] = _init_attn_stack(gen, cfg, L, dtype, dev)
+        L1 = _first_dense(cfg)
+        if L1:
+            params["dense_stack"] = _init_attn_stack(gen, cfg, L1, False, dtype, dev)
+        params["stack"] = _init_attn_stack(gen, cfg, L - L1, cfg.moe, dtype, dev)
     params["final_norm"] = ll.zeros((D,), dtype, dev)
     if not _tied(cfg):
         params["unembed"] = ll.trunc_normal(gen, (D, V), 1.0, dtype, dev)
@@ -161,25 +160,34 @@ def _layer(tree, i: int):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
-def _finish_block(p, h, a_out, cfg: ArchConfig):
-    """The rest of a pre-norm block after attention: residual, norm, MLP."""
+def _finish_block(p, h, a_out, cfg: ArchConfig, moe_impl: str = "ep"):
+    """The rest of a pre-norm block after attention: residual, norm, and the
+    MLP, or the MoE layer where the block has one. Returns (h, aux), aux the
+    MoE balance loss, None for an MLP (no zero tensor made on the card)."""
     if cfg.post_norms:
         a_out = ll.rms_norm(a_out, p["post_ln1"])
     h = h + a_out
-    f_out = ll.mlp(p["mlp"], ll.rms_norm(h, p["ln2"]), cfg.mlp_activation)
+    x = ll.rms_norm(h, p["ln2"])
+    aux = None
+    if "moe" in p:
+        f_out, aux = moe_lib.moe_layer(p["moe"], x, cfg, impl=moe_impl)
+    else:
+        f_out = ll.mlp(p["mlp"], x, cfg.mlp_activation)
     if cfg.post_norms:
         f_out = ll.rms_norm(f_out, p["post_ln2"])
-    return h + f_out
+    return h + f_out, aux
 
 
 def _attn_block_body(p, h, window: int, cfg: ArchConfig, opts: ModelOptions):
-    """One pre-norm block over the full sequence. Returns (h, (k, v))."""
+    """One pre-norm block over the full sequence. Returns (h, aux, (k, v)),
+    aux as ``_finish_block`` gives it."""
     a_out, kv = attn.full_attention(
         p["attn"], ll.rms_norm(h, p["ln1"]),
         window=window, causal=cfg.causal, theta=cfg.rope_theta,
         qk_norm=cfg.qk_norm, attn_impl=opts.attn_impl,
     )
-    return _finish_block(p, h, a_out, cfg), kv
+    h, aux = _finish_block(p, h, a_out, cfg, opts.moe_impl)
+    return h, aux, kv
 
 
 def _use_attn(cfg: ArchConfig):
@@ -194,34 +202,39 @@ def forward(params, cfg: ArchConfig, inputs: torch.Tensor,
     """Full-sequence forward. Returns (logits, aux_loss, caches) — caches is a dict
     of per-family prefill state when collect_kv (decode bootstrap). ``last_only``
     computes logits for the final position only (serving prefill: avoids the
-    (B, S, V) logit tensor entirely). aux_loss is 0: it is the MoE balance
-    loss, and MoE is not ported yet."""
-    require_ported(cfg)
+    (B, S, V) logit tensor entirely). aux_loss is the MoE balance loss summed
+    over the MoE layers (0 for the other families)."""
     if opts.remat != "none":
         raise NotImplementedError(
             f"remat={opts.remat!r} changes only the backward pass, which is not "
             f"ported yet (ROADMAP A.9)")
     h = embed_inputs(params, cfg, inputs)
     caches: Dict[str, Any] = {}
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family == "ssm":
         h, caches = _ssm_forward(params, cfg, h, opts, collect_kv)
     elif cfg.family == "hybrid":
         h, caches = _hybrid_forward(params, cfg, h, opts, collect_kv)
     else:
-        windows = layer_windows(cfg, cfg.num_layers)
-        ks, vs = [], []
-        for i in range(cfg.num_layers):
-            h, (k, v) = _attn_block_body(_layer(params["stack"], i), h, int(windows[i]),
-                                         cfg, opts)
+        L1 = _first_dense(cfg)
+        stacks = [("dense_stack", "dense_kv", layer_windows(cfg, L1, 0))] if L1 else []
+        stacks.append(("stack", "kv", layer_windows(cfg, cfg.num_layers - L1, L1)))
+        for name, cache_key, windows in stacks:
+            ks, vs = [], []
+            for i, window in enumerate(windows):
+                h, a, (k, v) = _attn_block_body(_layer(params[name], i), h, int(window),
+                                                cfg, opts)
+                if a is not None:
+                    aux = aux + a
+                if collect_kv:
+                    ks.append(k)
+                    vs.append(v)
             if collect_kv:
-                ks.append(k)
-                vs.append(v)
-        if collect_kv:
-            caches["kv"] = (torch.stack(ks), torch.stack(vs))
+                caches[cache_key] = (torch.stack(ks), torch.stack(vs))
     if last_only:
         h = h[:, -1:]
     logits = unembed(params, cfg, h)
-    return logits, torch.zeros((), dtype=torch.float32, device=h.device), caches
+    return logits, aux, caches
 
 
 def _stack_states(states):
@@ -251,7 +264,7 @@ def _hybrid_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: 
                                   impl=opts.ssd_impl)
         h = h + out
         if attn_here:
-            h, (k, v) = _attn_block_body(shared, h, int(BIG_WINDOW), cfg, opts)
+            h, _, (k, v) = _attn_block_body(shared, h, int(BIG_WINDOW), cfg, opts)
             if collect_kv:
                 ks.append(k)
                 vs.append(v)
@@ -268,7 +281,6 @@ def _hybrid_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: 
 def init_decode_state(params, cfg: ArchConfig, batch: int, max_len: int,
                       dtype=None, sliding_ring: bool = False) -> Dict[str, Any]:
     """Empty caches for decode-from-scratch, on the parameters' device."""
-    require_ported(cfg)
     dev = params["final_norm"].device
     dtype = dtype or dtype_of(cfg.dtype)
     K, hd, L = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
@@ -293,7 +305,10 @@ def init_decode_state(params, cfg: ArchConfig, batch: int, max_len: int,
                           for k, v in one.items()}
         state["shared_kv"] = kv(cfg.num_layers // cfg.ssm_attn_every, max_len)
     else:
-        state["kv"] = kv(L, max_len)
+        L1 = _first_dense(cfg)
+        if L1:
+            state["dense_kv"] = kv(L1, max_len)
+        state["kv"] = kv(L - L1, max_len)
     return state
 
 
@@ -305,7 +320,6 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any], inputs: torch.Te
     the caches of `state` in place, and `new_state` holds those same cache
     tensors (the reference returns new ones); lengths and the Mamba2 and
     RWKV6 states are new tensors."""
-    require_ported(cfg)
     h = embed_inputs(params, cfg, inputs)
     lengths = state["lengths"]
     new_state: Dict[str, Any] = {"lengths": lengths + 1}
@@ -322,16 +336,20 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any], inputs: torch.Te
         h = _sliding_ring_decode(params, cfg, state, h, new_state, opts)
     else:
         windows = layer_windows(cfg, cfg.num_layers)
-        kc, vc = state["kv"]
-        for i in range(cfg.num_layers):
-            p = _layer(params["stack"], i)
-            a_out, _, _ = attn.decode_attention(
-                p["attn"], ll.rms_norm(h, p["ln1"]), kc[i], vc[i], lengths,
-                window=int(windows[i]), theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-                flash_layout=opts.decode_flash_layout,
-            )
-            h = _finish_block(p, h, a_out, cfg)
-        new_state["kv"] = (kc, vc)
+        L1 = _first_dense(cfg)
+        stacks = [("dense_stack", "dense_kv", windows[:L1])] if L1 else []
+        stacks.append(("stack", "kv", windows[L1:]))
+        for name, cache_key, wins in stacks:
+            kc, vc = state[cache_key]
+            for i, window in enumerate(wins):
+                p = _layer(params[name], i)
+                a_out, _, _ = attn.decode_attention(
+                    p["attn"], ll.rms_norm(h, p["ln1"]), kc[i], vc[i], lengths,
+                    window=int(window), theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+                    flash_layout=opts.decode_flash_layout,
+                )
+                h, _ = _finish_block(p, h, a_out, cfg, opts.moe_impl)
+            new_state[cache_key] = (kc, vc)
 
     logits = unembed(params, cfg, h)[:, 0]
     return logits, new_state
@@ -362,7 +380,7 @@ def _sliding_ring_decode(params, cfg: ArchConfig, state, h, new_state,
                 p["attn"], x, rk[i], rv[i], lengths, theta=cfg.rope_theta,
                 qk_norm=cfg.qk_norm,
             )
-        h = _finish_block(p, h, a_out, cfg)
+        h, _ = _finish_block(p, h, a_out, cfg)
     new_state["kv_ring"] = (rk, rv)
     new_state["kv_global"] = (gk, gv)
     return h

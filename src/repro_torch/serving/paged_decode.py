@@ -1,8 +1,10 @@
 """Model-integrated paged decode: one token against the paged KV pool.
 
-The port of ``repro/serving/paged_decode.py`` for the dense family. A decode
-step is embed -> loop over layers [paged attention + mlp] -> unembed, reading
-pages the engine has promoted to the hot tier. Each layer's attention is the
+The port of ``repro/serving/paged_decode.py`` for the attention families
+(dense, moe, vlm, audio), as the reference's: it refuses what the reference
+asserts against, ssm and hybrid models and MoE stacks with leading dense
+layers. A decode step is embed -> loop over layers [paged attention + mlp or
+moe] -> unembed, reading pages the engine has promoted to the hot tier. Each layer's attention is the
 paged-attention kernel (``kernels/paged_attention``): the CUDA kernel for
 pools on the card, its plain version for pools on the CPU.
 """
@@ -27,7 +29,7 @@ def paged_decode_step(
     v_pool: torch.Tensor,
     block_table: torch.Tensor,   # (B, max_pages) int32 hot slots
     lengths: torch.Tensor,       # (B,) int32
-    inputs: torch.Tensor,        # (B, 1) tokens
+    inputs: torch.Tensor,        # (B, 1) tokens or (B, 1, D)
     opts: tf.ModelOptions = tf.ModelOptions(),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (logits (B, V), k_pool, v_pool).
@@ -35,13 +37,11 @@ def paged_decode_step(
     Unlike the reference, whose ``lax.scan`` donates the pools and returns new
     ones, this writes the new token's K/V into ``k_pool``/``v_pool`` in place
     and returns the same tensors, so the engine's call site reads the same."""
-    tf.require_ported(cfg)
-    if cfg.family != "dense" or cfg.input_mode != "tokens":
-        # The reference's paged decode is for attention models (its assert on
-        # the family); the port's reads params["stack"] and embeds tokens.
-        raise NotImplementedError(
-            f"{cfg.name}: paged decode serves dense token models; family {cfg.family!r} "
-            f"with {cfg.input_mode} input decodes through models.transformer.decode_step")
+    # The reference's two asserts, with its wording.
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError("paged decode is for attention archs")
+    if cfg.moe and cfg.moe_first_dense:
+        raise NotImplementedError("use uniform stacks for paged demo")
     B = inputs.shape[0]
     L, slots, page, K, hd = k_pool.shape
     h = tf.embed_inputs(params, cfg, inputs)
@@ -64,6 +64,6 @@ def paged_decode_step(
         out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages, block_table,
                               kv_lengths, int(windows[layer]), scale=scale)
         a_out = torch.einsum("bnh,nhd->bd", out.to(x.dtype), p["attn"]["wo"])
-        h = tf._finish_block(p, h, a_out[:, None], cfg)
+        h, _ = tf._finish_block(p, h, a_out[:, None], cfg, opts.moe_impl)
     logits = tf.unembed(params, cfg, h)[:, 0]
     return logits, k_pool, v_pool

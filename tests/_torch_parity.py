@@ -1,7 +1,7 @@
 """Shared set-up for the serving parity tests (tests/test_torch_serving*.py).
 
-One reduced gemma3-1b parameter tree, drawn by the reference's ``init_params``,
-runs in both packages: as it is in ``repro`` and, converted through numpy with
+One reduced parameter tree (gemma3-1b unless a scenario names another arch),
+drawn by the reference's ``init_params``, runs in both packages: as it is in ``repro`` and, converted through numpy with
 ``repro_torch.interop.from_reference``, on the CPU in ``repro_torch``. The
 engine scenarios mirror tests/test_serving.py and return what a caller sees:
 the generated token ids, ``tier_stats()`` and the modeled tier times.
@@ -39,11 +39,11 @@ PORT = types.SimpleNamespace(api=t_api, ecxl=t_emucxl, fabric=t_fabric, policy=t
                              dev_kw={"device": "cpu"}, asarray=torch.from_numpy)
 
 
-def models():
-    """(reference cfg, reference params, port cfg, port params) of reduced gemma3-1b."""
-    cfg_r = r_configs.get_config("gemma3-1b").reduced()
+def models(arch="gemma3-1b"):
+    """(reference cfg, reference params, port cfg, port params) of reduced `arch`."""
+    cfg_r = r_configs.get_config(arch).reduced()
     params_r = r_tf.init_params(jax.random.PRNGKey(0), cfg_r)
-    cfg_t = t_configs.get_config("gemma3-1b").reduced()
+    cfg_t = t_configs.get_config(arch).reduced()
     params_t = from_reference(jax.tree.map(np.asarray, params_r), cfg_t, device="cpu")
     return cfg_r, params_r, cfg_t, params_t
 

@@ -273,3 +273,26 @@ def test_cuda_tensor_core_kernel_within_one_bf16_ulp(case):
     out = flash_attention(q, k, v, window=window, scale=scale, causal=causal)
     ref = attention_ref(q, k, v, window, scale=scale, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), **PATH_TOL["bfloat16"])
+
+
+# hd 80 (hubert-xlarge, non-causal) and hd 192 (nemotron-4-340b, causal and
+# sliding): fp32 at 2e-5, bf16 within one bf16 ulp, ragged S and T.
+WIDE = [((2, 300, 16, 16, 80), 300, 1 << 30, False), ((1, 200, 4, 2, 80), 330, 1 << 30, True),
+        ((1, 130, 4, 1, 80), 130, 65, True), ((2, 300, 12, 1, 192), 300, 1 << 30, True),
+        ((1, 257, 4, 2, 192), 257, 64, True), ((1, 200, 4, 4, 192), 120, 1 << 30, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE, ids=lambda c: "B{}S{}N{}K{}hd{}".format(*c[0]) +
+                         f"-T{c[1]}-w{c[2]}" + ("" if c[3] else "-noncausal"))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_plain_at_head_dims_80_and_192(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape, T, window, causal = case
+    q, k, v = (_torch(a).cuda().to(getattr(torch, dtype))
+               for a in make_inputs(*shape, seed=10, T=T))
+    scale = shape[-1] ** -0.5
+    out = flash_attention(q, k, v, window=window, scale=scale, causal=causal)
+    ref = attention_ref(q, k, v, window, scale=scale, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), **PATH_TOL[dtype])

@@ -11,7 +11,9 @@ the reduced zamba2's SSD states grow to ~1e4 over four layers of random
 weights, where the reference's own ``ref``, ``chunked`` and ``pallas`` paths
 already differ by up to ~1 (1e-4 of the magnitude, fp32 summation order). Decode against teacher forcing is held at 2e-2 and
 ring decode against dense decode at 1e-3, as tests/test_arch_smoke.py:76 and
-:99 hold the reference.
+:99 hold the reference. The MoE balance loss is held at 1e-5. Paged decode
+runs the port's and the reference's ``paged_decode_step`` over the same
+pools, the reference's Pallas kernel in interpret mode.
 """
 
 import dataclasses
@@ -27,19 +29,23 @@ torch = pytest.importorskip("torch")
 
 import repro.configs as r_configs  # noqa: E402
 import repro.models.transformer as r_tf  # noqa: E402
+import repro.serving.paged_decode as r_pd  # noqa: E402
 import repro_torch.configs as t_configs  # noqa: E402
 import repro_torch.models.transformer as t_tf  # noqa: E402
+import repro_torch.serving.paged_decode as t_pd  # noqa: E402
 from repro_torch.interop import from_reference  # noqa: E402
 
 ATOL = 1e-3
+AUX_ATOL = 1e-5
 FLASH = dict(attn_impl="flash", ssd_impl="pallas")
+MOE = ["olmoe-1b-7b", "kimi-k2-1t-a32b"]
 
 
 @pytest.fixture(scope="module")
 def models():
     """arch -> (reference cfg, reference params, port cfg, port params), reduced fp32."""
     out = {}
-    for arch in ("gemma3-1b", "zamba2-1.2b", "internvl2-1b", "hubert-xlarge"):
+    for arch in ("gemma3-1b", "zamba2-1.2b", "internvl2-1b", "hubert-xlarge", *MOE):
         cfg_r = r_configs.get_config(arch).reduced()
         params_r = r_tf.init_params(jax.random.PRNGKey(0), cfg_r)
         cfg_t = t_configs.get_config(arch).reduced()
@@ -72,18 +78,23 @@ def _assert_tree_close(port, ref, atol, scaled=False):
         np.testing.assert_allclose(port.float().numpy(), ref, atol=tol, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "zamba2-1.2b", *MOE])
 @pytest.mark.parametrize("last_only", [False, True], ids=["all", "last"])
 def test_forward_and_prefill_caches_match_reference(models, arch, last_only):
+    """Logits, the aux loss (the MoE balance loss summed over layers, 0
+    elsewhere) and the prefill caches (kimi-k2's leading dense layer in
+    ``dense_kv``)."""
     cfg_r, params_r, cfg_t, params_t = models[arch]
     toks = _inputs(cfg_t, 2, 20, seed=1)
-    ref_logits, _, ref_caches = r_tf.forward(params_r, cfg_r, jnp.asarray(toks),
-                                             r_tf.ModelOptions(**FLASH), collect_kv=True,
-                                             last_only=last_only)
+    ref_logits, ref_aux, ref_caches = r_tf.forward(params_r, cfg_r, jnp.asarray(toks),
+                                                   r_tf.ModelOptions(**FLASH), collect_kv=True,
+                                                   last_only=last_only)
     logits, aux, caches = t_tf.forward(params_t, cfg_t, torch.from_numpy(toks),
                                        t_tf.ModelOptions(**FLASH), collect_kv=True,
                                        last_only=last_only)
-    assert float(aux) == 0.0
+    assert abs(float(aux) - float(ref_aux)) <= AUX_ATOL
+    assert (float(aux) > 0.0) == cfg_t.moe
+    assert ("dense_kv" in caches) == bool(cfg_t.moe_first_dense)
     _assert_tree_close(logits, ref_logits, ATOL)
     _assert_tree_close(caches, ref_caches, ATOL, scaled=True)
 
@@ -104,8 +115,8 @@ def test_forward_matches_reference(models, arch, impl):
 
 
 @pytest.mark.parametrize("arch,ring", [("gemma3-1b", False), ("gemma3-1b", True),
-                                       ("zamba2-1.2b", False)],
-                         ids=["gemma3-1b", "gemma3-1b-ring", "zamba2-1.2b"])
+                                       ("zamba2-1.2b", False), *[(a, False) for a in MOE]],
+                         ids=["gemma3-1b", "gemma3-1b-ring", "zamba2-1.2b", *MOE])
 def test_decode_matches_reference(models, arch, ring):
     cfg_r, params_r, cfg_t, params_t = models[arch]
     B, steps = 2, 12
@@ -206,16 +217,47 @@ def test_hybrid_params_match_the_reference_tree():
         from_reference(ref, dataclasses.replace(cfg_t, ssm_state=32), device="cpu")
 
 
-@pytest.mark.parametrize("arch,item", [("olmoe-1b-7b", "ROADMAP A.7"),
-                                       ("kimi-k2-1t-a32b", "ROADMAP A.7")])
-def test_unported_families_name_their_roadmap_item(arch, item):
-    cfg = t_configs.get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=item):
-        t_tf.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        t_tf.forward({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match=item):
-        t_tf.init_decode_state({}, cfg, 1, 8)
+@pytest.mark.parametrize("arch,item", [("olmoe-1b-7b", "ROADMAP A.10"),
+                                       ("kimi-k2-1t-a32b", "ROADMAP A.10")])
+def test_unported_families_name_their_roadmap_item(models, arch, item):
+    """Every family runs; what is left unported is the MoE layer's mesh
+    variants, which raise naming the item that ports them."""
+    _, _, cfg, params = models[arch]
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    state = t_tf.init_decode_state(params, cfg, 1, 8)
+    for impl in ("ep_ff", "ep_exact", "ep_ff_exact"):
+        opts = t_tf.ModelOptions(moe_impl=impl)
+        with pytest.raises(NotImplementedError, match=item):
+            t_tf.forward(params, cfg, toks, opts)
+        with pytest.raises(NotImplementedError, match=item):
+            t_tf.decode_step(params, cfg, state, toks[:, :1], opts)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_params_match_the_reference_tree(arch):
+    """The port's own init gives the reference's MoE tree (kimi-k2's
+    dense_stack and shared expert included): keys, shapes and dtypes, the
+    router fp32 inside a bf16 tree; from_reference keeps them and refuses a
+    tree of other widths."""
+    cfg_r = dataclasses.replace(r_configs.get_config(arch).reduced(),
+                                dtype="bfloat16", param_dtype="bfloat16")
+    cfg_t = dataclasses.replace(t_configs.get_config(arch).reduced(),
+                                dtype="bfloat16", param_dtype="bfloat16")
+    ref = jax.tree.map(np.asarray, r_tf.init_params(jax.random.PRNGKey(0), cfg_r))
+    own = t_tf.init_params(torch.Generator().manual_seed(0), cfg_t, device="cpu")
+    carried = from_reference(ref, cfg_t, device="cpu")
+    for tree in (own, carried):
+        assert jax.tree.structure(jax.tree.map(lambda a: 0, ref)) == \
+            jax.tree.structure(jax.tree.map(lambda a: 0, tree))
+        for r, t in zip(jax.tree.leaves(ref), jax.tree.leaves(tree), strict=True):
+            assert tuple(t.shape) == r.shape
+            assert str(t.dtype).removeprefix("torch.") == r.dtype.name
+    assert carried["stack"]["moe"]["router"].dtype == torch.float32
+    assert carried["stack"]["moe"]["w_gate"].dtype == torch.bfloat16
+    assert ("dense_stack" in carried) == bool(cfg_t.moe_first_dense)
+    with pytest.raises(ValueError, match="stack/moe/w_gate"):
+        from_reference(ref, dataclasses.replace(cfg_t, moe_d_ff=2 * cfg_t.moe_d_ff),
+                       device="cpu")
 
 
 def test_remat_names_the_training_item(models):
@@ -225,15 +267,51 @@ def test_remat_names_the_training_item(models):
                      t_tf.ModelOptions(remat="full"))
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "internvl2-1b", "hubert-xlarge"])
-def test_paged_decode_serves_dense_token_models_only(models, arch):
-    """The paged decode reads params["stack"] and embeds tokens; the other
-    ported families decode through transformer.decode_step."""
-    from repro_torch.serving.paged_decode import paged_decode_step
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "internvl2-1b", "hubert-xlarge"])
+def test_paged_decode_matches_reference_across_families(models, arch):
+    """The paged decode serves what the reference's serves: olmoe (MoE, token
+    ids) and internvl2 and hubert ((B, 1, D) embeddings). 12 steps over one
+    block table, logits at 1e-3 and the pools at 1e-4 of their largest |value|
+    (unit-normal embeddings give K/V up to ~20) against the reference's, both
+    at the engine's default moe_impl="dense"."""
+    cfg_r, params_r, cfg_t, params_t = models[arch]
+    B, page, maxp, steps = 2, 8, 2, 12
+    shape = (cfg_r.num_layers, 2 * maxp, page, cfg_r.num_kv_heads, cfg_r.resolved_head_dim)
+    k_r = v_r = jnp.zeros(shape, jnp.float32)
+    k_t, v_t = torch.zeros(shape), torch.zeros(shape)
+    table = np.stack([np.arange(maxp), np.arange(maxp) + maxp]).astype(np.int32)
+    inputs = _inputs(cfg_t, B, steps, seed=7)
+    r_opts, t_opts = r_tf.ModelOptions(moe_impl="dense"), t_tf.ModelOptions(moe_impl="dense")
+    for t in range(steps):
+        x = inputs[:, t:t + 1]
+        lengths = np.full((B,), t, np.int32)
+        ref, k_r, v_r = r_pd.paged_decode_step(params_r, cfg_r, k_r, v_r, jnp.asarray(table),
+                                               jnp.asarray(lengths), jnp.asarray(x), r_opts)
+        out, k_t, v_t = t_pd.paged_decode_step(params_t, cfg_t, k_t, v_t,
+                                               torch.from_numpy(table),
+                                               torch.from_numpy(lengths), torch.from_numpy(x),
+                                               t_opts)
+        _assert_tree_close(out, ref, ATOL)
+    _assert_tree_close((k_t, v_t), (k_r, v_r), 1e-4, scaled=True)
 
-    _, _, cfg, params = models[arch]
-    pool = torch.zeros((cfg.num_layers, 2, 4, cfg.num_kv_heads, cfg.resolved_head_dim))
-    with pytest.raises(NotImplementedError, match="decode_step"):
-        paged_decode_step(params, cfg, pool, pool.clone(), torch.zeros((1, 2), dtype=torch.int32),
-                          torch.zeros((1,), dtype=torch.int32),
-                          torch.zeros((1, 1), dtype=torch.int32))
+
+@pytest.mark.parametrize("arch,message", [
+    ("kimi-k2-1t-a32b", "use uniform stacks for paged demo"),
+    ("zamba2-1.2b", "paged decode is for attention archs"),
+    ("rwkv6-3b", "paged decode is for attention archs"),
+])
+def test_paged_decode_refuses_what_the_reference_refuses(arch, message):
+    """kimi-k2 (a leading dense layer), zamba2 (hybrid) and rwkv6 (ssm): the
+    reference asserts with these words, the port raises with them."""
+    cfg_r = r_configs.get_config(arch).reduced()
+    cfg_t = t_configs.get_config(arch).reduced()
+    shape = (cfg_t.num_layers, 2, 8, cfg_t.num_kv_heads, cfg_t.resolved_head_dim)
+    table, lengths = np.zeros((1, 2), np.int32), np.zeros((1,), np.int32)
+    toks = np.zeros((1, 1), np.int32)
+    with pytest.raises(AssertionError, match=message):
+        r_pd.paged_decode_step({}, cfg_r, jnp.zeros(shape), jnp.zeros(shape),
+                               jnp.asarray(table), jnp.asarray(lengths), jnp.asarray(toks))
+    with pytest.raises(NotImplementedError, match=message):
+        t_pd.paged_decode_step({}, cfg_t, torch.zeros(shape), torch.zeros(shape),
+                               torch.from_numpy(table), torch.from_numpy(lengths),
+                               torch.from_numpy(toks))

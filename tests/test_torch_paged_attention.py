@@ -24,6 +24,11 @@ SWEEP = [  # (B, N, K, hd, page, max_pages): tests/test_kernels.py:54 plus the s
     (3, 8, 8, 32, 8, 6),
     (1, 8, 1, 128, 32, 2),
     (4, 4, 1, 256, 8, 5),
+    # and published groups and head dims past the first four: G 7 (internvl2-1b),
+    # G 12 at hd 192 (nemotron-4-340b), hd 80 (hubert-xlarge)
+    (2, 14, 2, 64, 8, 4),
+    (1, 24, 2, 192, 8, 3),
+    (2, 4, 4, 80, 8, 3),
 ]
 WINDOWS = [1 << 30, 24]
 
@@ -243,3 +248,40 @@ def test_cuda_kernel_matches_plain_at_partition_edges(case, q_dtype):
     tol = 2e-5 if q_dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
+
+# Group sizes that are no power of two and past 8, and head dims 80 and 192:
+# deepseek-coder-33b (G 7, hd 128), internvl2-1b (G 7, hd 64), nemotron-4-340b
+# (G 12, hd 192), hubert-xlarge (G 1, hd 80), with one and several partitions.
+WIDE_CASES = [((2, 3 * K, K, hd, 8, 20), [37, 150], w)
+              for K, hd in ((1, 64), (2, 128)) for w in (1 << 30, 50)] + [
+    ((2, G * 2, 2, hd, 16, 12), [40, 190], 1 << 30)
+    for G in (3, 5, 6, 7, 12, 16) for hd in (64, 128)] + [
+    ((2, 7 * 2, 2, 64, 8, 5), [24, 40], 1 << 30),
+    ((2, 12 * 8, 8, 192, 8, 5), [24, 40], 1 << 30),
+    ((3, 12 * 2, 2, 192, 16, 20), [1, 64, 300], 100),
+    ((2, 16, 1, 192, 8, 40), [65, 320], 1 << 30),
+    ((2, 16, 16, 80, 8, 5), [24, 40], 1 << 30),
+    ((3, 4, 1, 80, 8, 40), [1, 64, 300], 1 << 30),
+    ((2, 16 * 2, 2, 80, 8, 20), [30, 150], 24),
+    ((2, 16, 1, 32, 8, 20), [30, 150], 1 << 30),
+    ((2, 16, 1, 256, 8, 20), [30, 150], 1 << 30),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_CASES,
+                         ids=lambda c: "B{}N{}K{}hd{}p{}m{}".format(*c[0]) + f"-w{c[2]}")
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_plain_at_every_group_and_head_dim(case, q_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape, lengths, window = case
+    q, kp, vp, table, lens = (_torch(a).cuda() for a in
+                              make_split_inputs(*shape, lengths, seed=sum(lengths)))
+    if q_dtype == "bfloat16":
+        q = q.to(torch.bfloat16)
+    scale = shape[3] ** -0.5
+    out = paged_attention(q, kp, vp, table, lens, window, scale=scale)
+    ref = paged_attention_ref(q, kp, vp, table, lens, window, scale=scale)
+    tol = 2e-5 if q_dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
