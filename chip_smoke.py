@@ -55,7 +55,22 @@ printed with the wall time of the phase before it:
      device time of the expert products and of the routing, sort and scatter
      around them, and the host time of the group sizes' copy;
  10. the serving path at full width again, for olmoe-1b-7b (16 layers, 64
-     experts top-8) through the same engine set-up as phase 4.
+     experts top-8) through the same engine set-up as phase 4;
+ 11. training at full width: gemma3-1b (26 layers, d_model 1152, vocab
+     262144; random bf16 weights from seed 0), B=2 x 2048 synthetic tokens a
+     step through ``PrefetchLoader``, ``attn_impl="xla"``, AdamW at lr 1e-3.
+     8 steps with the optimizer state on the device and 8 from the same
+     start with it in pinned host memory, the losses agreeing within 1e-5;
+     the median step time, tokens/s and the forward, backward and optimizer
+     split of a step for both, the optimizer's host<->device bytes, and the
+     device idle share of one profiled step; the loss falling over 8 steps
+     on one repeated batch; one step each with remat none, full and offload,
+     loss and gradient norm within 1e-5, with each one's peak device memory
+     and the bytes offload sent to the host; a train step with
+     ``attn_impl="flash"`` refused before any launch; a checkpoint restart
+     (save at step 4, 2 steps, restore, the same 2 steps) bitwise under
+     ``torch.use_deterministic_algorithms``; grad_accum=2 against the full
+     batch in fp32, parameters within 5e-5. No kernel runs in training.
 The last two lines are a JSON ``kernels`` record and a JSON result line.
 
 Float32 matmuls run in full precision (TF32 off), so fp32 comparisons on the
@@ -68,6 +83,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
@@ -75,7 +91,11 @@ import sys
 import time
 from pathlib import Path
 
-import torch
+# cuBLAS is deterministic only with a fixed workspace, set before CUDA starts
+# (phase 11's bitwise checkpoint restart runs under deterministic algorithms).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 outside the tensor cores
@@ -287,7 +307,8 @@ def grad_refusal() -> None:
         try:
             call(x.requires_grad_())
         except NotImplementedError as e:
-            check("ROADMAP A.9" in str(e), f"{name}: the refusal does not name A.9: {e}")
+            check("reference's Pallas kernel has none" in str(e),
+                  f"{name}: the refusal does not name the plain path: {e}")
         else:
             raise RuntimeError(f"chip_smoke: {name} ran under grad with an input "
                                f"that requires grad")
@@ -1250,6 +1271,324 @@ def kernel_record(name, source, replaces, launches, worst, row, **extra):
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], **extra}
 
 
+# ------------------------------------------------------------------ training path
+TRAIN_HP = dict(learning_rate=1e-3, warmup_steps=1, decay_steps=1000)
+# Two runs of the same steps from the same start, optimizer state on the
+# device or in pinned host memory: the same fp32 arithmetic on the same
+# values, so the losses agree to rounding.
+TRAIN_LOSS_RTOL = 1e-5
+# grad_accum=2 against the full batch, on an fp32 copy of the model. The
+# accumulated gradients are held within TRAIN_ACCUM_GRAD_RTOL of each leaf's
+# largest |value| (fp32 sums in another order), and the parameters after one
+# step within 5e-5, as tests/test_training.py:53, except where AdamW's first
+# step amplifies that gradient difference: it maps the clipped gradient g to
+# lr * g / (|g| + eps), whose slope is at most 1/eps = 1e8, so an element
+# whose g is near 0 moves by up to lr * |dg| / eps (1.7e-4 on the card for
+# a gradient difference of 2.2e-9). Each element is held to the larger of
+# the two, from its own gradient difference.
+TRAIN_ACCUM_ATOL = 5e-5
+TRAIN_ACCUM_GRAD_RTOL = 1e-5
+# If an op has no deterministic CUDA version, the restart check is held to 4
+# bf16 ulps (4 * 2^-8) of each parameter leaf's largest |value| instead.
+TRAIN_NONDET_RTOL = 4 * 2.0 ** -8
+
+
+def _split_step(tf, adamw, tree, params, opt, batch, cfg, opts, hp):
+    """One train step timed in three parts (device-synced): the loss
+    (forward), the gradients (backward) and the AdamW update."""
+    leaves = tree.leaves
+    live = tree.tree_map(lambda p: p.detach().requires_grad_(), params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss, _ = tf.loss_fn(live, cfg, batch, opts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves(live))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    adamw.apply_update(params, tree.unflatten_like(params, list(grads)), opt, hp)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return {"forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
+            "optimizer_ms": (t3 - t2) * 1e3}
+
+
+def train_path() -> dict:
+    """Phase 11: train full-width gemma3-1b on the card (see the module's
+    docstring). Returns the numbers it printed."""
+    import tempfile
+    import warnings
+
+    from repro_torch import tree
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.emucxl import EmuCXL
+    from repro_torch.core.offload import OffloadPolicy
+    from repro_torch.data.loader import PrefetchLoader
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+
+    phase("training path: gemma3-1b full width, 2 x 2048 tokens a step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-1b")
+    B, S, n_steps = 2, 2048, 8
+    opts = tf.ModelOptions(attn_impl="xla")
+    params0 = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    n_params = sum(p.numel() for p in tree.leaves(params0))
+    print(f"gemma3-1b: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads "
+          f"over {cfg.num_kv_heads} KV head of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, tied; {n_params / 1e9:.4f} B parameters, {cfg.param_dtype}; "
+          f"lr {TRAIN_HP['learning_rate']}, attn_impl={opts.attn_impl!r}, remat={opts.remat!r}")
+    src = SyntheticTokens(cfg, B, S, seed=0)
+    out: dict = {"params": n_params, "tokens_per_step": B * S}
+
+    def fresh(hp):
+        params = tree.tree_map(torch.clone, params0)
+        return params, adamw.init_state(params, hp)
+
+    def device_batch(i):
+        return {k: torch.from_numpy(v).cuda() for k, v in src.batch_at(i).items()}
+
+    def run_steps(offload_state: bool, repeat: bool = False):
+        """8 steps through the loader, staging through the port's EmuCXL."""
+        hp = adamw.OptimizerConfig(offload_state=offload_state, **TRAIN_HP)
+        params, opt = fresh(hp)
+        step = make_train_step(cfg, opts, hp)
+        lib = EmuCXL()
+        lib.init(local_capacity=1 << 26, remote_capacity=1 << 28, device="cuda")
+        loader = PrefetchLoader(src, lib=lib, device="cuda")
+        losses, secs, first = [], [], None
+        try:
+            for _ in range(n_steps):
+                batch = loader.get()
+                if repeat:
+                    first = batch if first is None else first
+                    batch = first
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, batch)
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            staged = loader.state()["step"]
+        finally:
+            loader.close()
+            lib.exit()
+        check(all(l == l and abs(l) < float("inf") for l in losses), f"non-finite loss {losses}")
+        return hp, params, opt, step, losses, secs, staged
+
+    runs = {}
+    for offload_state in (False, True):
+        hp, params, opt, step, losses, secs, staged = run_steps(offload_state)
+        state_leaves = [t for k in ("m", "v", "master") for t in tree.leaves(opt[k])]
+        if offload_state:
+            check(all(t.is_pinned() for t in state_leaves),
+                  "offload_state=True left optimizer state off pinned host memory")
+        else:
+            check(all(t.is_cuda for t in state_leaves), "optimizer state is not on the card")
+        state_bytes = sum(t.numel() * t.element_size() for t in state_leaves)
+        med = statistics.median(secs[1:])
+        split = _split_step(tf, adamw, tree, params, opt, device_batch(n_steps), cfg, opts, hp)
+        busy_us, _ = profiled(lambda: step(params, opt, device_batch(n_steps + 1)),
+                              f"one train step, optimizer state "
+                              f"{'in pinned host memory' if offload_state else 'on the card'}")
+        torch.cuda.synchronize()
+        where = "host" if offload_state else "device"
+        print(f"state on the {where}: losses {[round(l, 5) for l in losses]}; steps "
+              f"{[round(t * 1e3, 1) for t in secs]} ms (first includes warm-up); median "
+              f"{med * 1e3:.1f} ms, {B * S / med:.0f} tokens/s; split {split}; "
+              f"optimizer state {state_bytes / 1e9:.3f} GB; {staged} batches staged")
+        print(f"the profiled step's device busy time is {busy_us / 1e3 / (med * 1e3):.3f} of "
+              f"the unprofiled median step (the profiler slows the host)")
+        row = {"losses": losses, "step_ms": [t * 1e3 for t in secs], "median_ms": med * 1e3,
+               "tokens_per_s": B * S / med, **split, "state_bytes": state_bytes,
+               "device_busy_ms": busy_us / 1e3}
+        if offload_state:
+            moved = 2 * state_bytes
+            row["optimizer_host_device_bytes"] = moved
+            print(f"optimizer with offloaded state: {moved / 1e9:.3f} GB across the host link "
+                  f"a step (fetch + write-back of m, v, master), "
+                  f"{split['optimizer_ms']:.1f} ms, {moved / split['optimizer_ms'] / 1e6:.1f} GB/s")
+        runs[where] = row
+        del params, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = max(abs(a - b) / abs(a) for a, b in zip(runs["device"]["losses"],
+                                                      runs["host"]["losses"], strict=True))
+    print(f"losses, state on the device vs in pinned host memory: max relative difference "
+          f"{worst:.3e} (limit {TRAIN_LOSS_RTOL})")
+    check(worst <= TRAIN_LOSS_RTOL, f"offloaded optimizer state changes the losses by {worst}")
+    out.update(runs=runs, offload_loss_rel_diff=worst)
+
+    # -- the loss falls on one repeated batch
+    _, params, opt, step, losses, _, _ = run_steps(False, repeat=True)
+    print(f"one repeated batch, {n_steps} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"({[round(l, 4) for l in losses]})")
+    check(losses[-1] < losses[0] - 0.5, f"the loss does not fall: {losses}")
+    out["repeated_batch_losses"] = losses
+    del params, opt, step
+
+    # -- remat: one step each, same start, same batch
+    batch = device_batch(0)
+    remat_rows = {}
+    for remat in ("none", "full", "offload"):
+        hp = adamw.OptimizerConfig(**TRAIN_HP)
+        params, opt = fresh(hp)
+        step = make_train_step(cfg, dataclasses.replace(opts, remat=remat), hp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = OffloadPolicy.total_bytes
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        remat_rows[remat] = {"loss": loss, "grad_norm": gnorm, "step_ms": ms,
+                             "peak_bytes": peak, "peak_over_start_bytes": peak - base,
+                             "offloaded_bytes": OffloadPolicy.total_bytes - before}
+        print(f"remat={remat!r}: loss {loss:.6f}, grad norm {gnorm:.6f}, step {ms:.1f} ms "
+              f"(first of its kind), peak device memory {peak / 2**30:.2f} GiB "
+              f"({(peak - base) / 2**30:.2f} GiB over the {base / 2**30:.2f} GiB held "
+              f"before the step), saved inputs sent to the host "
+              f"{remat_rows[remat]['offloaded_bytes'] / 2**20:.1f} MiB")
+        del params, opt, step, metrics
+    for remat in ("full", "offload"):
+        for key in ("loss", "grad_norm"):
+            a, b = remat_rows["none"][key], remat_rows[remat][key]
+            check(abs(a - b) <= TRAIN_LOSS_RTOL * abs(a),
+                  f"remat={remat!r} changes the {key}: {a} vs {b}")
+    check(remat_rows["offload"]["offloaded_bytes"] > 0, "remat='offload' sent nothing to the host")
+    out["remat"] = remat_rows
+
+    # -- the CUDA kernels refuse grad: a flash train step raises before launching
+    mods = kernel_modules()
+    hp = adamw.OptimizerConfig(**TRAIN_HP)
+    before = mods["flash_attention"].launches
+    try:
+        make_train_step(cfg, dataclasses.replace(opts, attn_impl="flash"), hp)(
+            params0, None, batch)
+    except NotImplementedError as e:
+        print(f"attn_impl='flash' train step refused: {str(e)[:100]}...")
+    else:
+        raise RuntimeError("chip_smoke: a train step ran the flash kernel under grad")
+    check(mods["flash_attention"].launches == before, "flash launched before refusing")
+
+    # -- checkpoint restart, bitwise under deterministic algorithms
+    hp = adamw.OptimizerConfig(offload_state=True, **TRAIN_HP)
+    params, opt = fresh(hp)
+    step = make_train_step(cfg, opts, hp)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                tempfile.TemporaryDirectory() as ckdir:
+            warnings.simplefilter("always")
+            for i in range(4):
+                params, opt, _ = step(params, opt, device_batch(i))
+            mgr = CheckpointManager(ckdir, keep=1, async_save=False)
+            t0 = time.perf_counter()
+            mgr.save(4, {"params": params, "opt": opt}, block=True)
+            save_s = time.perf_counter() - t0
+            for i in (4, 5):
+                params, opt, _ = step(params, opt, device_batch(i))
+            first_run = tree.tree_map(torch.clone, params)
+            t0 = time.perf_counter()
+            restored = mgr.restore(4, {"params": params, "opt": opt})
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            ck_bytes = sum(p.stat().st_size for p in Path(ckdir).rglob("*.npy"))
+            del params, opt
+            params, opt = restored["params"], restored["opt"]
+            check(all(t.is_pinned() for t in tree.leaves(opt["m"])),
+                  "restored optimizer state is not in pinned host memory")
+            for i in (4, 5):
+                params, opt, _ = step(params, opt, device_batch(i))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split("\n")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    diffs = [float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+             for a, b in zip(tree.leaves(params), tree.leaves(first_run), strict=True)]
+    equal = all(torch.equal(a, b) for a, b in zip(tree.leaves(params), tree.leaves(first_run)))
+    print(f"checkpoint: {ck_bytes / 1e9:.3f} GB of step files, save "
+          f"{save_s:.1f} s, restore {restore_s:.1f} s; resumed run bitwise equal: {equal}; "
+          f"largest leaf difference {max(diffs):.3e} of its max")
+    if nondet:
+        print(f"ops without a deterministic CUDA version: {nondet}; held to "
+              f"{TRAIN_NONDET_RTOL:.4f} of each leaf's largest |value|")
+        check(max(diffs) <= TRAIN_NONDET_RTOL, f"restart differs by {max(diffs)}")
+    else:
+        check(equal, "the resumed run is not bitwise equal to the uninterrupted one")
+    out["checkpoint"] = {"bytes": ck_bytes, "save_s": save_s, "restore_s": restore_s,
+                         "bitwise": equal, "nondeterministic_ops": nondet}
+    del params, opt, restored, first_run, step
+
+    # -- grad accumulation, fp32 copy of the model, remat full to fit
+    from repro_torch.launch.steps import _value_and_grad
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    hp = adamw.OptimizerConfig(**TRAIN_HP)
+    opts32 = dataclasses.replace(opts, remat="full")
+    base = tree.tree_map(lambda p: p.to(torch.float32, copy=True), params0)
+    del params0
+    results = []
+    for accum in (1, 2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = tree.tree_map(torch.clone, base)
+        opt = adamw.init_state(params, hp)
+        params, opt, metrics = make_train_step(cfg32, opts32, hp, grad_accum=accum)(
+            params, opt, batch)
+        results.append((params, float(metrics["loss"]), float(metrics["lr"])))
+        del opt
+    (p1, l1, lr1), (p2, l2, _) = results
+    del results
+    # the gradients each run took, as make_train_step forms them
+    loss_of = lambda p, b: tf.loss_fn(p, cfg32, b, opts32)
+    _, g1 = _value_and_grad(loss_of, base, batch)
+    g2 = None
+    for i in range(2):
+        _, g = _value_and_grad(loss_of, base, {k: v[i:i + 1] for k, v in batch.items()})
+        g2 = g if g2 is None else tree.tree_map(torch.add, g2, g)
+    g2 = tree.tree_map(lambda g: g / 2, g2)
+    del base, g
+    s1 = min(1.0, hp.grad_clip_norm / (float(adamw.global_norm(g1)) + 1e-9))
+    s2 = min(1.0, hp.grad_clip_norm / (float(adamw.global_norm(g2)) + 1e-9))
+    grad_rel, param_diff, over, over_bound = 0.0, 0.0, 0, 0.0
+    for a, b, pa, pb in zip(tree.leaves(g1), tree.leaves(g2), tree.leaves(p1),
+                            tree.leaves(p2), strict=True):
+        grad_rel = max(grad_rel, float((a - b).abs().max() / a.abs().max()))
+        dp = (pa - pb).abs()
+        bound = torch.clamp(lr1 * (a * s1 - b * s2).abs() / hp.eps * 1.01 + 1e-7,
+                            min=TRAIN_ACCUM_ATOL)
+        param_diff = max(param_diff, float(dp.max()))
+        over += int((dp > TRAIN_ACCUM_ATOL).sum())
+        over_bound = max(over_bound, float((dp / bound).max()))
+    print(f"fp32, grad_accum=2 vs full batch: gradients within {grad_rel:.3e} of each leaf's "
+          f"largest |value| (limit {TRAIN_ACCUM_GRAD_RTOL}); parameters within "
+          f"{param_diff:.3e}, {over} of {n_params} elements past {TRAIN_ACCUM_ATOL}, each within "
+          f"{over_bound:.3f} of its bound max({TRAIN_ACCUM_ATOL}, lr |dg| / eps); loss "
+          f"{l1:.6f} vs {l2:.6f}")
+    check(grad_rel <= TRAIN_ACCUM_GRAD_RTOL, f"accumulated gradients differ by {grad_rel}")
+    check(over_bound <= 1.0, f"grad accumulation moves a parameter past its bound ({over_bound})")
+    check(abs(l1 - l2) < 1e-3, f"grad accumulation changes the loss: {l1} vs {l2}")
+    out["grad_accum"] = {"grad_max_rel_diff": grad_rel, "param_max_abs_diff": param_diff,
+                         "params_past_5e-5": over, "worst_over_bound": over_bound,
+                         "loss_full": l1, "loss_accum": l2}
+    del p1, p2, g1, g2
+    torch.cuda.synchronize()
+    print("training: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1275,6 +1614,7 @@ def main() -> int:
     rwkv = prefill_path("rwkv6-3b", {"wkv6": 32})
     olmoe = prefill_path("olmoe-1b-7b", {"flash_attention": 16})
     olmoe_launches = main_path(ops, ref, "olmoe-1b-7b")
+    train_path()
     phase("results")
     print(json.dumps({"kernels": [
         kernel_record("paged_attention",

@@ -8,12 +8,15 @@ Two API generations share one modeled backend:
     shim over a default session (raw ints remain the currency, but stale
     addresses raise instead of aliasing).
 
-Plus the slab-allocator middleware the serving path builds on. LOCAL bytes live
-in CUDA device memory and REMOTE bytes in pinned host memory (both on the CPU
-when the caller asks for ``device="cpu"``).
+Plus the middleware the paper demonstrates (KV store, slab allocator,
+direct-access queue) and the training/serving integration helpers (offload).
+LOCAL bytes live in CUDA device memory and REMOTE bytes in pinned host memory
+(both on the CPU when the caller asks for ``device="cpu"``).
 
 Exports resolve lazily (PEP 562): ``from repro_torch.core import CXLSession`` pulls
-in the torch-backed modules, but ``import repro_torch.core.trace`` does not.
+in the torch-backed modules, but ``import repro_torch.core.mc`` (the stdlib-only
+model checker) or ``import repro_torch.core.trace`` does not: neither loads torch
+nor numpy.
 """
 
 import importlib
@@ -49,6 +52,7 @@ _EXPORTS: Dict[str, str] = {
     "single_switch": "topology", "spine_leaf": "topology",
     # hardware model + middleware
     "V5E": "hw", "HardwareModel": "hw",
+    "KVStore": "kvstore",
     "AccessStats": "policy", "CongestionAwarePlacement": "policy",
     "CongestionAwarePromotion": "policy", "Policy1": "policy",
     "Policy2": "policy", "StaticPlacement": "policy", "Tier": "policy",

@@ -1,4 +1,4 @@
-"""Carry a reference parameter tree into the port.
+"""Carry a reference parameter tree, or optimizer state, into the port.
 
 The port cannot reproduce ``jax.random`` streams, so parity tests build the
 parameters with the reference's ``init_params``, convert the tree to numpy
@@ -17,16 +17,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.offload import HOST, to_tier
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as m2
+from repro_torch.tree import tree_map
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.array(a, order="C")          # a C-ordered copy; keeps 0-d arrays 0-d
     if a.dtype.name == "bfloat16":
         # ml_dtypes' bfloat16 has no torch.from_numpy mapping: carry the bits.
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _convert(tree, device):
@@ -75,3 +77,21 @@ def from_reference(params_np: Dict[str, Any], cfg: ArchConfig, device="cuda") ->
         if tuple(found) != want:
             raise ValueError(f"{path} has shape {tuple(found)}; {cfg.name} needs {want}")
     return _convert(params_np, dev)
+
+
+def opt_state_from_reference(tree: Dict[str, Any], device="cuda",
+                             pinned: bool = False) -> Dict[str, Any]:
+    """Port's AdamW state from the reference's ``init_state``/``apply_update``
+    tree of numpy arrays, so both packages can start a step from one state.
+    ``m``, ``v`` and ``master`` go to pinned host memory when `pinned` (the
+    state of ``OptimizerConfig(offload_state=True)``), else to `device`;
+    ``step`` goes to `device`."""
+    dev = resolve_device(device)
+
+    def place(a):
+        t = _tensor(np.asarray(a), dev)
+        return to_tier(t, HOST, dev) if pinned else t
+
+    out = {k: tree_map(place, tree[k]) for k in ("m", "v", "master") if k in tree}
+    out["step"] = _tensor(np.asarray(tree["step"]), dev)
+    return out

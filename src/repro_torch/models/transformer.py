@@ -15,7 +15,9 @@ The port of ``repro/models/transformer.py`` for three kinds of model:
 Parameters keep the reference's tree and its layer-stacked ``(L, ...)``
 layout, so ``repro_torch.interop.from_reference`` maps one tree onto the
 other key for key. The reference's ``lax.scan`` over layers becomes a Python
-loop over per-layer views of the stacked parameters.
+loop over per-layer views of the stacked parameters, and its
+``jax.checkpoint`` of the scan body (``remat``) a per-layer
+``torch.utils.checkpoint`` (``core/offload.py::remat``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.offload import offload_checkpoint_policy, remat
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as ll
@@ -160,6 +163,16 @@ def _layer(tree, i: int):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _layers(tree, n: int):
+    """Every layer's view of a layer-stacked parameter tree, cut with one
+    ``unbind`` a leaf: its backward stacks the layers' gradients once, where
+    indexing each layer (``_layer``) builds a zero gradient of the whole
+    stack for every layer and sums them."""
+    cut = {k: _layers(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
+           for k, v in tree.items()}
+    return [{k: v[i] for k, v in cut.items()} for i in range(n)]
+
+
 def _finish_block(p, h, a_out, cfg: ArchConfig, moe_impl: str = "ep"):
     """The rest of a pre-norm block after attention: residual, norm, and the
     MLP, or the MoE layer where the block has one. Returns (h, aux), aux the
@@ -190,6 +203,22 @@ def _attn_block_body(p, h, window: int, cfg: ArchConfig, opts: ModelOptions):
     return h, aux, kv
 
 
+def _layer_runner(opts: ModelOptions, device, offload: bool = True):
+    """How a layer body runs: directly, or checkpointed per layer as the
+    reference's ``jax.checkpoint`` of its scan body. With ``remat="offload"``
+    the checkpoint keeps each layer's input, the reference's ``"residual"``,
+    in the host tier; `offload` False keeps it on the device, as the
+    reference's hybrid body, which it checkpoints with no policy."""
+    if opts.remat == "none":
+        return lambda fn, *args: fn(*args)
+    if opts.remat not in ("full", "offload"):
+        raise ValueError(f"unknown remat {opts.remat!r}")
+    policy = None
+    if opts.remat == "offload" and offload:
+        policy = offload_checkpoint_policy(opts.offload_names, device)
+    return lambda fn, *args: remat(fn, policy=policy)(*args)
+
+
 def _use_attn(cfg: ArchConfig):
     """Hybrid: whether layer i is followed by the shared attention block."""
     return [(i + 1) % cfg.ssm_attn_every == 0 for i in range(cfg.num_layers)]
@@ -203,11 +232,8 @@ def forward(params, cfg: ArchConfig, inputs: torch.Tensor,
     of per-family prefill state when collect_kv (decode bootstrap). ``last_only``
     computes logits for the final position only (serving prefill: avoids the
     (B, S, V) logit tensor entirely). aux_loss is the MoE balance loss summed
-    over the MoE layers (0 for the other families)."""
-    if opts.remat != "none":
-        raise NotImplementedError(
-            f"remat={opts.remat!r} changes only the backward pass, which is not "
-            f"ported yet (ROADMAP A.9)")
+    over the MoE layers (0 for the other families). ``opts.remat`` "full"
+    or "offload" checkpoints each layer body, as the reference does."""
     h = embed_inputs(params, cfg, inputs)
     caches: Dict[str, Any] = {}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -216,14 +242,16 @@ def forward(params, cfg: ArchConfig, inputs: torch.Tensor,
     elif cfg.family == "hybrid":
         h, caches = _hybrid_forward(params, cfg, h, opts, collect_kv)
     else:
+        run = _layer_runner(opts, h.device)
         L1 = _first_dense(cfg)
         stacks = [("dense_stack", "dense_kv", layer_windows(cfg, L1, 0))] if L1 else []
         stacks.append(("stack", "kv", layer_windows(cfg, cfg.num_layers - L1, L1)))
         for name, cache_key, windows in stacks:
             ks, vs = [], []
-            for i, window in enumerate(windows):
-                h, a, (k, v) = _attn_block_body(_layer(params[name], i), h, int(window),
-                                                cfg, opts)
+            layers = _layers(params[name], len(windows))
+            for p, window in zip(layers, windows, strict=True):
+                h, a, (k, v) = run(
+                    lambda hh, p=p, w=int(window): _attn_block_body(p, hh, w, cfg, opts), h)
                 if a is not None:
                     aux = aux + a
                 if collect_kv:
@@ -246,9 +274,10 @@ def _ssm_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: boo
     """RWKV6: every layer starts from a zero state; caches {"rwkv": {"tm_x",
     "cm_x", "wkv"}} stacked over L when collect_kv."""
     state = rk.rwkv6_init_state(cfg, h.shape[0], h.dtype, h.device)
+    run = _layer_runner(opts, h.device)
     states = []
-    for i in range(cfg.num_layers):
-        h, st = rk.rwkv6_block(_layer(params["blocks"], i), h, state, cfg, impl=opts.wkv_impl)
+    for p in _layers(params["blocks"], cfg.num_layers):
+        h, st = run(lambda hh, p=p: rk.rwkv6_block(p, hh, state, cfg, impl=opts.wkv_impl), h)
         if collect_kv:
             states.append(st)
     return h, ({"rwkv": _stack_states(states)} if collect_kv else {})
@@ -258,23 +287,57 @@ def _hybrid_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: 
     """Zamba2: Mamba2 layers; the shared attention block every ssm_attn_every."""
     state = m2.mamba2_init_state(cfg, h.shape[0], h.dtype, h.device)
     shared = _layer(params["shared_attn"], 0)                    # strip L=1
-    states, ks, vs = [], [], []
-    for i, attn_here in enumerate(_use_attn(cfg)):
-        out, st = m2.mamba2_block(_layer(params["blocks"], i), h, state, cfg,
-                                  impl=opts.ssd_impl)
-        h = h + out
+    run = _layer_runner(opts, h.device, offload=False)
+
+    def body(p, attn_here, hh):
+        out, st = m2.mamba2_block(p, hh, state, cfg, impl=opts.ssd_impl)
+        hh = hh + out
+        kv = None
         if attn_here:
-            h, _, (k, v) = _attn_block_body(shared, h, int(BIG_WINDOW), cfg, opts)
-            if collect_kv:
-                ks.append(k)
-                vs.append(v)
+            hh, _, kv = _attn_block_body(shared, hh, int(BIG_WINDOW), cfg, opts)
+        return hh, st, kv
+
+    states, ks, vs = [], [], []
+    layers = _layers(params["blocks"], cfg.num_layers)
+    for p, attn_here in zip(layers, _use_attn(cfg), strict=True):
+        h, st, kv = run(lambda hh, p=p, a=attn_here: body(p, a, hh), h)
         if collect_kv:
             states.append(st)
+            if attn_here:
+                ks.append(kv[0])
+                vs.append(kv[1])
     caches: Dict[str, Any] = {}
     if collect_kv:
         caches = {"mamba": _stack_states(states),
                   "shared_kv": (torch.stack(ks), torch.stack(vs))}
     return h, caches
+
+
+# ------------------------------------------------------------------------- loss
+def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            opts: ModelOptions = ModelOptions()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token (decoder) or frame-target (encoder) cross entropy + MoE aux.
+
+    The reference's arithmetic: the normalizer over ``logits - max`` with the
+    max held constant (``.detach()`` for its ``stop_gradient``), the optional
+    ``weights``, the z-loss ``1e-4 * mean(lse^2)``, and the aux loss times
+    ``moe_aux_loss_coef``. The label logit is a gather where the reference
+    sums an iota mask (its way of keeping vocab-sharded logits sharded): the
+    same value, without a second (B, S, V) tensor."""
+    logits, aux, _ = forward(params, cfg, batch["inputs"], opts)
+    labels = batch["targets"].long()
+    weights = batch.get("weights")
+    mx = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - mx), dim=-1)) + mx[..., 0]
+    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - label_logit
+    if weights is None:
+        weights = torch.ones_like(nll)
+    ce = torch.sum(nll * weights) / torch.clamp(torch.sum(weights), min=1.0)
+    # z-loss stabilizes the softmax normalizer at scale (reuses lse)
+    zl = 1e-4 * torch.mean(torch.square(lse))
+    total = ce + zl + cfg.moe_aux_loss_coef * aux
+    return total, {"ce": ce, "aux": aux, "z_loss": zl}
 
 
 # ------------------------------------------------------------------------- decode

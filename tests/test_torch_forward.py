@@ -261,10 +261,31 @@ def test_moe_params_match_the_reference_tree(arch):
 
 
 def test_remat_names_the_training_item(models):
-    _, _, cfg, params = models["gemma3-1b"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        t_tf.forward(params, cfg, torch.zeros((1, 4), dtype=torch.int32),
-                     t_tf.ModelOptions(remat="full"))
+    """remat "full" and "offload" (ROADMAP A.9, ported) change only where the
+    backward finds its activations: the loss and every gradient equal those
+    without remat within 1e-6, and the loss the reference's under the same
+    remat within 1e-5."""
+    cfg_r, params_r, cfg, params = models["gemma3-1b"]
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    batch = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+
+    def port(remat):
+        from repro_torch.tree import leaves, tree_map
+
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = t_tf.loss_fn(live, cfg, {k: torch.from_numpy(v) for k, v in batch.items()},
+                               t_tf.ModelOptions(remat=remat))
+        return float(loss), torch.autograd.grad(loss, leaves(live))
+
+    loss0, g0 = port("none")
+    for remat in ("full", "offload"):
+        loss, g = port(remat)
+        assert abs(loss - loss0) <= 1e-6 * abs(loss0)
+        for a, b in zip(g0, g, strict=True):
+            assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())
+        ref, _ = r_tf.loss_fn(params_r, cfg_r, {k: jnp.asarray(v) for k, v in batch.items()},
+                              r_tf.ModelOptions(remat=remat))
+        assert abs(loss - float(ref)) < 1e-5
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "internvl2-1b", "hubert-xlarge"])
