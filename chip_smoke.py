@@ -71,6 +71,26 @@ printed with the wall time of the phase before it:
      (save at step 4, 2 steps, restore, the same 2 steps) bitwise under
      ``torch.use_deterministic_algorithms``; grad_accum=2 against the full
      batch in fp32, parameters within 5e-5. No kernel runs in training.
+ 12. the multi-device layer on the card: an NCCL process group of one rank
+     (an in-memory store, no network) and a (1, 1) ("data", "model")
+     DeviceMesh. Full-width gemma3-1b takes 3 steps each under
+     ``train_fsdp`` and ``train_dp_all`` from phase 11's start (the same
+     seed-0 weights, batches and hyperparameters), with parameters, AdamW
+     state and batches as DTensors placed by ``launch/specs.py``; each
+     step's loss and gradient norm within 1e-5 of phase 11's mesh-less
+     steps (the largest relative difference printed), the median step
+     against phase 11's, the device idle share of one profiled step and the
+     peak device memory; one ``train_fsdp`` step with the state's shards in
+     pinned host memory, its loss equal to the on-card step's; phase 11's
+     mesh-less checkpoint restored with ``shardings=`` onto the mesh, every
+     leaf's ``full_tensor()`` bitwise equal to the file; ``psum_compressed``
+     over the one-rank group bitwise equal to compress -> decompress; no
+     kernel launched. Beside it, in a CPU subprocess, ``launch.dryrun`` for
+     gemma3-1b x train_4k and kimi-k2-1t-a32b x decode_32k on the 16x16
+     mesh of a fake 256-rank group, each cell's placed parameter bytes a
+     device equal to those reckoned from the specs. It prints a
+     ``multi_device: {...}`` JSON line with every number and the card's
+     name and power limit.
 The last two lines are a JSON ``kernels`` record and a JSON result line.
 
 Float32 matmuls run in full precision (TF32 off), so fp32 comparisons on the
@@ -1193,9 +1213,9 @@ def moe_breakdown(tf, moe_mod, params, cfg, prefill, busy_us, by_name) -> None:
     captured = []
     local_pass = moe_mod._local_expert_pass
 
-    def capture(*args):
+    def capture(*args, **kwargs):
         captured.append(args)
-        return local_pass(*args)
+        return local_pass(*args, **kwargs)
 
     moe_mod._local_expert_pass = capture
     try:
@@ -1361,7 +1381,7 @@ def train_path() -> dict:
         lib = EmuCXL()
         lib.init(local_capacity=1 << 26, remote_capacity=1 << 28, device="cuda")
         loader = PrefetchLoader(src, lib=lib, device="cuda")
-        losses, secs, first = [], [], None
+        losses, gnorms, secs, first = [], [], [], None
         try:
             for _ in range(n_steps):
                 batch = loader.get()
@@ -1372,6 +1392,7 @@ def train_path() -> dict:
                 t0 = time.perf_counter()
                 params, opt, metrics = step(params, opt, batch)
                 losses.append(float(metrics["loss"]))
+                gnorms.append(float(metrics["grad_norm"]))
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
             staged = loader.state()["step"]
@@ -1379,11 +1400,11 @@ def train_path() -> dict:
             loader.close()
             lib.exit()
         check(all(l == l and abs(l) < float("inf") for l in losses), f"non-finite loss {losses}")
-        return hp, params, opt, step, losses, secs, staged
+        return hp, params, opt, step, losses, gnorms, secs, staged
 
     runs = {}
     for offload_state in (False, True):
-        hp, params, opt, step, losses, secs, staged = run_steps(offload_state)
+        hp, params, opt, step, losses, gnorms, secs, staged = run_steps(offload_state)
         state_leaves = [t for k in ("m", "v", "master") for t in tree.leaves(opt[k])]
         if offload_state:
             check(all(t.is_pinned() for t in state_leaves),
@@ -1404,7 +1425,8 @@ def train_path() -> dict:
               f"optimizer state {state_bytes / 1e9:.3f} GB; {staged} batches staged")
         print(f"the profiled step's device busy time is {busy_us / 1e3 / (med * 1e3):.3f} of "
               f"the unprofiled median step (the profiler slows the host)")
-        row = {"losses": losses, "step_ms": [t * 1e3 for t in secs], "median_ms": med * 1e3,
+        row = {"losses": losses, "grad_norms": gnorms,
+               "step_ms": [t * 1e3 for t in secs], "median_ms": med * 1e3,
                "tokens_per_s": B * S / med, **split, "state_bytes": state_bytes,
                "device_busy_ms": busy_us / 1e3}
         if offload_state:
@@ -1425,7 +1447,7 @@ def train_path() -> dict:
     out.update(runs=runs, offload_loss_rel_diff=worst)
 
     # -- the loss falls on one repeated batch
-    _, params, opt, step, losses, _, _ = run_steps(False, repeat=True)
+    _, params, opt, step, losses, _, _, _ = run_steps(False, repeat=True)
     print(f"one repeated batch, {n_steps} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"({[round(l, 4) for l in losses]})")
     check(losses[-1] < losses[0] - 0.5, f"the loss does not fall: {losses}")
@@ -1486,9 +1508,9 @@ def train_path() -> dict:
     params, opt = fresh(hp)
     step = make_train_step(cfg, opts, hp)
     torch.use_deterministic_algorithms(True, warn_only=True)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")    # phase 12 restores it, then removes it
     try:
-        with warnings.catch_warnings(record=True) as caught, \
-                tempfile.TemporaryDirectory() as ckdir:
+        with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             for i in range(4):
                 params, opt, _ = step(params, opt, device_batch(i))
@@ -1586,6 +1608,231 @@ def train_path() -> dict:
     del p1, p2, g1, g2
     torch.cuda.synchronize()
     print("training: " + json.dumps(out))
+    return out, ckdir
+
+
+# ------------------------------------------------------------------ multi-device layer
+MESH_RULES = ("train_fsdp", "train_dp_all")
+MESH_STEPS = 3
+DRYRUN_CELLS = (("gemma3-1b", "train_4k"), ("kimi-k2-1t-a32b", "decode_32k"))
+# The dry run: each cell on the 16x16 mesh of a fake 256-rank group, meta
+# tensors only, on the CPU, beside the card's work; its per-device parameter
+# bytes are held against those reckoned from the port's specs alone.
+DRYRUN_SCRIPT = """
+import json, math, sys
+sys.path.insert(0, "src")
+from repro_torch.launch import dryrun, specs as sp
+from repro_torch.tree import leaves
+
+class Grid:
+    shape = {"data": 16, "model": 16}
+    axis_names = ("data", "model")
+
+out = {}
+for arch, shape in %r:
+    run, meta = dryrun.build_cell(arch, shape)
+    counts = run()
+    cfg, rules = meta["cfg"], meta["rules"]
+    reckoned = 0
+    for sh, t in zip(leaves(sp.param_shardings(cfg, Grid, rules)), leaves(sp.params_specs(cfg))):
+        split = math.prod(Grid.shape[a] for e in sh.spec if e
+                          for a in ((e,) if isinstance(e, str) else e))
+        reckoned += t.numel() // split * t.element_size()
+    out[arch + " x " + shape] = {
+        "rules": rules, "param_bytes": meta["param_bytes"], "reckoned_param_bytes": reckoned,
+        "argument_bytes": meta["argument_bytes"], "host_argument_bytes": meta["host_argument_bytes"],
+        "collectives": counts}
+print(json.dumps(out))
+""" % (DRYRUN_CELLS,)
+
+
+def multi_device_path(training: dict, ckdir: str, smi: str) -> dict:
+    """Phase 12: the multi-device layer on one card (see the module's
+    docstring). Returns the numbers it printed."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.distributed import axis_rules, compression, named_sharding
+    from repro_torch.distributed.sharding import device_put, full_tensor
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from torch.distributed.tensor import DTensor
+
+    phase("multi-device layer: gemma3-1b full width on a 1x1 NCCL mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    dry = subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT], cwd=root, text=True,
+                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    zero_counts()
+    out: dict = {"card": smi, "mesh": "1x1 (data, model), NCCL, world size 1"}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        cfg = get_config("gemma3-1b")
+        B, S = 2, 2048
+        opts = tf.ModelOptions(attn_impl="xla")
+        params0 = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                 device="cuda")
+        src = SyntheticTokens(cfg, B, S, seed=0)
+        one = training["runs"]["device"]
+        scalar = lambda x: float(x.full_tensor() if isinstance(x, DTensor) else x)  # noqa: E731
+
+        def placed(rules, hp):
+            params = tree.tree_map(device_put, params0, sp.param_shardings(cfg, mesh, rules))
+            opt = tree.tree_map(device_put, adamw.init_state(params, hp),
+                                sp.opt_state_shardings(cfg, hp, mesh, rules))
+            return params, opt
+
+        def batch(i, rules):
+            b_sh = named_sharding(("batch", "seq"), mesh, rules, shape=(B, S))
+            return {k: device_put(torch.from_numpy(v).cuda(), b_sh)
+                    for k, v in src.batch_at(i).items()}
+
+        rows = {}
+        for rules in MESH_RULES:
+            hp = adamw.OptimizerConfig(**TRAIN_HP)
+            params, opt = placed(rules, hp)
+            step = make_train_step(cfg, opts, hp)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, gnorms, secs = [], [], []
+            for i in range(MESH_STEPS):
+                b = batch(i, rules)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with axis_rules(mesh, rules):
+                    params, opt, metrics = step(params, opt, b)
+                losses.append(scalar(metrics["loss"]))
+                gnorms.append(scalar(metrics["grad_norm"]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated()
+            d_loss = max(abs(a - b) / abs(b) for a, b in zip(losses, one["losses"]))
+            d_gnorm = max(abs(a - b) / abs(b) for a, b in zip(gnorms, one["grad_norms"]))
+            b = batch(MESH_STEPS, rules)
+            with axis_rules(mesh, rules):
+                step(params, opt, b)                     # warm, then profile one step
+                torch.cuda.synchronize()
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    step(params, opt, b)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+            busy_us, _ = print_profile(prof, wall_us, f"one train step on the mesh, {rules}")
+            med = statistics.median(secs[1:])
+            print(f"{rules}: losses {[round(x, 6) for x in losses]} vs phase 11 "
+                  f"{[round(x, 6) for x in one['losses'][:MESH_STEPS]]}; grad norms "
+                  f"{[round(x, 6) for x in gnorms]} vs "
+                  f"{[round(x, 6) for x in one['grad_norms'][:MESH_STEPS]]}; largest relative "
+                  f"difference loss {d_loss:.3e}, grad norm {d_gnorm:.3e} (limit "
+                  f"{TRAIN_LOSS_RTOL}); steps {[round(t * 1e3, 1) for t in secs]} ms, median "
+                  f"{med * 1e3:.1f} ms against phase 11's {one['median_ms']:.1f} ms; peak device "
+                  f"memory {peak / 2**30:.2f} GiB [{smi}]")
+            check(d_loss <= TRAIN_LOSS_RTOL, f"{rules}: mesh losses differ by {d_loss}")
+            check(d_gnorm <= TRAIN_LOSS_RTOL, f"{rules}: mesh grad norms differ by {d_gnorm}")
+            rows[rules] = {"losses": losses, "grad_norms": gnorms, "loss_rel_diff": d_loss,
+                           "grad_norm_rel_diff": d_gnorm, "step_ms": [t * 1e3 for t in secs],
+                           "median_ms": med * 1e3, "phase11_median_ms": one["median_ms"],
+                           "peak_bytes": peak, "profiled_wall_ms": wall_us / 1e3,
+                           "device_busy_ms": busy_us / 1e3,
+                           "idle_share": 1 - busy_us / wall_us if busy_us else None}
+            del params, opt, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["rules"] = rows
+
+        # -- one train_fsdp step with the AdamW state's shards in pinned host memory
+        hp = adamw.OptimizerConfig(offload_state=True, **TRAIN_HP)
+        params, opt = placed("train_fsdp", hp)
+        shards = [t.to_local() for k in ("m", "v", "master") for t in tree.leaves(opt[k])]
+        check(all(t.is_pinned() for t in shards), "offloaded state shards are not pinned")
+        with axis_rules(mesh, "train_fsdp"):
+            _, opt, metrics = make_train_step(cfg, opts, hp)(params, opt, batch(0, "train_fsdp"))
+        loss = scalar(metrics["loss"])
+        on_card = rows["train_fsdp"]["losses"][0]
+        print(f"train_fsdp with the state's shards in pinned host memory: loss {loss:.6f} "
+              f"(on the card {on_card:.6f}); {sum(t.numel() * t.element_size() for t in shards) / 1e9:.3f} "
+              f"GB of pinned shards")
+        check(loss == on_card, f"offloaded state changes the loss: {loss} vs {on_card}")
+        check(all(t.to_local().is_pinned() for t in tree.leaves(opt["m"])),
+              "the update moved the state off pinned host memory")
+        out["offload"] = {"loss": loss, "on_card_loss": on_card}
+        del params, opt, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- elastic restore of phase 11's mesh-less checkpoint onto the mesh
+        template = {"params": sp.params_specs(cfg), "opt": sp.opt_state_specs(cfg, hp)}
+        shardings = {"params": sp.param_shardings(cfg, mesh, "train_fsdp"),
+                     "opt": sp.opt_state_shardings(cfg, hp, mesh, "train_fsdp")}
+        mgr = ckpt.CheckpointManager(ckdir, keep=1, async_save=False)
+        step_no = mgr.latest_step()
+        t0 = time.perf_counter()
+        restored = mgr.restore(step_no, template, shardings=shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        src_dir = Path(ckdir) / f"step_{step_no:09d}"
+        flat = ckpt._flatten(restored)
+        equal = all(torch.equal(full_tensor(leaf).cpu(),
+                                ckpt._load(src_dir / f"{key}.npy", torch.empty(0, dtype=leaf.dtype)))
+                    for key, leaf in flat.items())
+        pinned = all(leaf.to_local().is_pinned() for key, leaf in flat.items()
+                     if key.startswith(("opt__m__", "opt__v__", "opt__master__")))
+        print(f"elastic restore of phase 11's step-{step_no} checkpoint onto the mesh: "
+              f"{len(flat)} leaves in {restore_s:.1f} s, every full_tensor() bitwise equal: "
+              f"{equal}; state shards pinned: {pinned}")
+        check(equal, "a restored leaf differs from the checkpoint")
+        check(pinned, "restored state shards are not in pinned host memory")
+        out["restore"] = {"leaves": len(flat), "seconds": restore_s, "bitwise": equal}
+        del restored, flat
+
+        # -- psum_compressed over the one-rank group
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        g = {"w": torch.randn((1152, 6912), generator=gen, device="cuda") * 1e-2,
+             "b": torch.randn((1152,), generator=gen, device="cuda")}
+        with axis_rules(mesh, "train_fsdp"):
+            red, err = compression.psum_compressed(g, "data")
+        qs, err2 = compression.compress_tree(g)
+        deq = compression.decompress_tree(qs)
+        same = all(torch.equal(red[k], deq[k]) and torch.equal(err[k], err2[k]) for k in g)
+        print(f"psum_compressed over the one-rank group equals compress -> decompress "
+              f"bitwise: {same}")
+        check(same, "psum_compressed over one rank differs from compress -> decompress")
+        out["compression_bitwise"] = same
+        counts = read_counts()
+        check(not any(counts.values()), f"a kernel ran in training on the mesh: {counts}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ckdir, ignore_errors=True)
+        try:
+            dry_out, dry_err = dry.communicate(timeout=300)
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+    check(dry.returncode == 0, f"the dry run failed: {dry_err[-2000:]}")
+    cells = json.loads(dry_out.strip().splitlines()[-1])
+    for name, cell in cells.items():
+        print(f"dry run {name} on a fake 16x16 mesh ({cell['rules']}): parameters "
+              f"{cell['param_bytes'] / 2**30:.3f} GiB a device (from the specs "
+              f"{cell['reckoned_param_bytes'] / 2**30:.3f} GiB), arguments "
+              f"{cell['argument_bytes'] / 2**30:.3f} GiB, host tier "
+              f"{cell['host_argument_bytes'] / 2**30:.3f} GiB; collectives {cell['collectives']}")
+        check(cell["param_bytes"] == cell["reckoned_param_bytes"],
+              f"dry run {name}: placed parameter bytes differ from the specs'")
+    out["dryrun"] = cells
+    print("multi_device: " + json.dumps(out))
     return out
 
 
@@ -1614,7 +1861,8 @@ def main() -> int:
     rwkv = prefill_path("rwkv6-3b", {"wkv6": 32})
     olmoe = prefill_path("olmoe-1b-7b", {"flash_attention": 16})
     olmoe_launches = main_path(ops, ref, "olmoe-1b-7b")
-    train_path()
+    training, ckdir = train_path()
+    multi_device_path(training, ckdir, smi)
     phase("results")
     print(json.dumps({"kernels": [
         kernel_record("paged_attention",

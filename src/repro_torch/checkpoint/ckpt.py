@@ -14,6 +14,12 @@ read back as bf16 — so a checkpoint written by either package restores in
 the other. ``save`` snapshots with copies: the optimizer updates its state in
 place, and a view of a pinned master would change under the writer thread.
 Restore places each leaf like the template's (device, pinned host memory).
+
+On a mesh the files are the same: ``save`` gathers each DTensor leaf whole
+(``full_tensor()``, a collective every rank joins) and rank 0 writes.
+``restore(shardings=...)`` places each full leaf on the given shardings,
+which may describe another mesh than the one that saved (the elastic
+restart); a DTensor template places each leaf as the template is.
 """
 
 from __future__ import annotations
@@ -28,7 +34,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import device_put, full_tensor, place_like
 from repro_torch.tree import leaves_with_path, unflatten_like
 
 _SEP = "__"
@@ -42,6 +51,8 @@ def _flatten(tree: Any) -> Dict[str, Any]:
 def _snapshot(x) -> np.ndarray:
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
+    if isinstance(x, DTensor):
+        x = full_tensor(x.detach())
     t = x.detach().cpu().clone()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)   # marked by _save
@@ -58,7 +69,7 @@ def _save(path: pathlib.Path, arr: np.ndarray, bf16: bool) -> None:
         f.write(np.ascontiguousarray(arr, dtype="<u2").tobytes())
 
 
-def _load(path: pathlib.Path, template) -> Any:
+def _load(path: pathlib.Path, template, sharding=None) -> Any:
     arr = np.load(path)
     if not isinstance(template, torch.Tensor):
         return arr.astype(np.asarray(template).dtype)
@@ -67,6 +78,10 @@ def _load(path: pathlib.Path, template) -> Any:
     else:
         t = torch.from_numpy(np.array(arr, order="C"))
     t = t.to(template.dtype)
+    if sharding is not None:
+        return device_put(t.to(sharding.mesh.device_type), sharding)
+    if isinstance(template, DTensor):
+        return place_like(t.to(template.device_mesh.device_type), template)
     if template.is_cuda:
         return t.to(template.device)
     return t.pin_memory() if template.is_pinned() else t
@@ -90,6 +105,8 @@ class CheckpointManager:
         bf16 = {k for k, x in flat.items()
                 if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16}
         host_state = {k: _snapshot(x) for k, x in flat.items()}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return                        # rank 0 writes the gathered arrays
         self.wait()
         args = (step, host_state, bf16, extra or {})
         if self.async_save and not block:
@@ -136,15 +153,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, template: Any, shardings: Optional[Any] = None) -> Any:
-        """Load into the structure of `template`, each leaf placed and typed like
-        the template's. ``shardings`` (another mesh's layout) needs the
-        multi-device layer."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings needs a device mesh, which is not ported "
-                "yet (ROADMAP A.10)")
+        """Load into the structure of `template`, each leaf typed like the
+        template's and placed per `shardings` if given (which may describe a
+        different mesh than the one that saved — elastic), else like the
+        template's leaf (device, pinned host memory, DTensor placements)."""
         src = self.dir / f"step_{step:09d}"
-        flat = [_load(src / f"{key}.npy", leaf) for key, leaf in _flatten(template).items()]
+        flat_s = _flatten(shardings) if shardings is not None else {}
+        flat = [_load(src / f"{key}.npy", leaf, flat_s.get(key))
+                for key, leaf in _flatten(template).items()]
         return unflatten_like(template, flat)
 
     def extra(self, step: int) -> Dict:

@@ -1,5 +1,7 @@
 """Hardware model for the target platform (TPU v5e) and the emulated CXL-style host tier.
 
+The port adds ``H100``, the card it runs on, beside ``V5E`` (ROADMAP A.12).
+
 The paper emulates the CXL remote tier with a CPU-less NUMA node; the analogous remote
 tier on a TPU host is pinned host DRAM behind the PCIe/CXL link. All roofline math and
 the latency cost model read from this single source of truth.
@@ -52,6 +54,22 @@ class HardwareModel:
 
 
 V5E = HardwareModel()
+
+# The port's card, NVIDIA H100 SXM5 80GB, offered beside V5E (which stays the
+# default everywhere, so modeled statistics equal the reference's). Figures
+# from NVIDIA's H100 Tensor Core GPU data sheet unless noted; the emulator's
+# latency floors and pooled-DRAM terms keep V5E's values.
+H100 = HardwareModel(
+    name="h100_sxm",
+    peak_flops_bf16=989e12,        # data sheet: BF16 Tensor Core, dense (1979 sparse)
+    hbm_bandwidth=3.35e12,         # data sheet: HBM3, 3.35 TB/s
+    hbm_capacity=80 * 2**30,       # data sheet: 80 GB HBM3
+    # NVLink 4 in place of ICI: 900 GB/s per GPU over 18 links (data sheet),
+    # i.e. 25 GB/s per link per direction
+    ici_link_bandwidth=25e9,
+    ici_links_per_chip=18,
+    host_link_bandwidth=64e9,      # data sheet: PCIe Gen5 x16, 128 GB/s both ways
+)
 
 # Chips per pod slice used throughout the launch configs.
 SINGLE_POD_CHIPS = 256

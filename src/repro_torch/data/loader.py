@@ -4,8 +4,10 @@ The port of ``repro/data/loader.py``. The paper's *direct access* usage model
 applied to input data: staging buffers are emucxl allocations in the remote
 tier (pinned host memory on the card); the loader writes the next batch into
 the inactive buffer while the device consumes the current one, then DMAs it
-across. The reference's ``sharding`` becomes the loader's ``device``: the
-consumer gets tensors there. A mesh is not ported (ROADMAP A.10).
+across. The consumer gets tensors on the loader's ``device``; with the
+reference's ``sharding`` (a ``NamedSharding``, or a dict of them by batch
+key) each rank builds its DTensor batch from its own block of the staged
+batch (``DTensor.from_local``, no collective).
 
 On a card the DMA is a ``non_blocking`` copy out of the pinned staging
 buffer on the current stream; before the producer rewrites a buffer it waits
@@ -25,6 +27,7 @@ import torch
 from repro_torch.core import emucxl as ecxl
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import device_put
 
 
 class PrefetchLoader:
@@ -37,10 +40,12 @@ class PrefetchLoader:
         prefetch: int = 2,
         device="cuda",
         start_step: int = 0,
+        sharding=None,
     ):
         self.source = source
         self.lib = lib
         self.device = resolve_device(device)
+        self.sharding = sharding
         self.step = start_step
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -81,6 +86,10 @@ class PrefetchLoader:
         while not self._stop.is_set():
             batch = self.source.batch_at(self.step)
             staged = {k: self._stage(k, v) for k, v in batch.items()}
+            if self.sharding is not None:
+                staged = {k: device_put(v, self.sharding[k] if isinstance(self.sharding, dict)
+                                        else self.sharding)
+                          for k, v in staged.items()}
             try:
                 self._q.put((self.step, staged), timeout=1.0)
                 self.step += 1

@@ -10,9 +10,13 @@ from __future__ import annotations
 import torch
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises if it names an absent card."""
+def resolve_device(device, shapes_only: bool = False) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names an absent card.
+    ``"meta"`` (shapes, no memory) is taken only where `shapes_only` says the
+    caller builds shapes for the specs (``launch/specs.py``)."""
     dev = torch.device(device)
+    if dev.type == "meta" and shapes_only:
+        return dev
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -6,8 +6,8 @@ cross-pod all-reduce and dequantized after. The residual (g - deq(q)) feeds
 back into the next step's gradient so the bias vanishes over time
 (error-feedback SGD guarantee). ``torch.round`` rounds half to even, as
 ``jnp.round`` does, so the int8 values and scales equal the reference's.
-The all-reduce itself (``psum_compressed``) needs a process group, which the
-multi-device layer brings (ROADMAP A.10).
+``psum_compressed`` all-reduces over a mesh axis's process group, where the
+reference's ``psum``/``pmax`` run inside ``shard_map``.
 """
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.tree import tree_map
 
 
@@ -50,8 +52,29 @@ def decompress_tree(qs: Any) -> Any:
 
 
 def psum_compressed(grads: Any, axis_name: str, error: Optional[Any] = None):
-    """All-reduce of int8-compressed gradients over `axis_name`: needs a
-    process group over a mesh axis."""
-    raise NotImplementedError(
-        "psum_compressed needs a process group over a device mesh, which is not "
-        "ported yet (ROADMAP A.10)")
+    """All-reduce int8-compressed gradients over mesh axis `axis_name` of the
+    ``axis_rules`` context's mesh (the reference runs inside ``shard_map``).
+
+    Each rank passes its own (local) gradient tree. The reference's
+    arithmetic: the int8 values
+    widen to int32 and are summed over the axis's group, the scales take
+    their maximum (``pmax``), and the result is ``summed * s_max / n`` over
+    the axis's `n` ranks. Error feedback is carried by the caller."""
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("psum_compressed needs a mesh (an axis_rules context)")
+    group = mesh.get_group(axis_name)
+    n = mesh.shape[axis_name]
+    qs, new_error = compress_tree(grads, error)
+
+    def reduce_one(qsc):
+        q, s = qsc
+        # the int8 payload widened to int32 for the accumulation, as the
+        # reference's psum over the axis
+        summed = q.to(torch.int32)
+        dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
+        s_max = s.clone()
+        dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+        return summed.to(torch.float32) * s_max / float(n)
+
+    return tree_map(reduce_one, qs, is_leaf=_is_qs), new_error

@@ -6,6 +6,11 @@ functions over the port's eager model: autograd takes the reference's
 Training runs the plain paths (``attn_impl="xla"``, ``ssd_impl`` and
 ``wkv_impl="chunked"``), as the reference's defaults: no CUDA kernel has a
 backward (``kernels/_grad.py``).
+
+On a mesh the steps take DTensor parameters, optimizer state and batch and
+run inside ``axis_rules(mesh, rules)``, as the reference's jitted steps run
+under its mesh; the gradients come out placed like the parameters (a
+``Partial`` gradient is reduced onto its parameter's placements).
 """
 
 from __future__ import annotations
@@ -14,7 +19,10 @@ from typing import Callable
 
 import torch
 
+from torch.distributed.tensor import DTensor, Replicate
+
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
 from repro_torch.tree import leaves, tree_map, unflatten_like
@@ -29,9 +37,29 @@ def _value_and_grad(loss_of, params, batch):
         loss, metrics = loss_of(live, batch)
         flat = leaves(live)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads, strict=True)]
+    grads = [torch.zeros_like(p) if g is None else _placed_like(g, p)
+             for p, g in zip(flat, grads, strict=True)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), unflatten_like(params, grads)
+
+
+def _placed_like(g, p):
+    """Gradient `g` on its parameter's placements."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _microbatches(x, n: int):
+    """Global batch `x` as `n` microbatches of consecutive rows, the
+    reference's reshape. A DTensor batch is gathered, cut, and each
+    microbatch laid out again as the batch was."""
+    if not isinstance(x, DTensor):
+        return x.reshape((n, x.shape[0] // n, *x.shape[1:]))
+    mesh = x.device_mesh
+    whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    cut = whole.reshape((n, x.shape[0] // n, *x.shape[1:]))
+    return [cut[i].redistribute(mesh, x.placements) for i in range(n)]
 
 
 def make_train_step(
@@ -57,12 +85,8 @@ def make_train_step(
         if grad_accum == 1:
             (loss, metrics), grads = _value_and_grad(loss_of, params, batch)
         else:
-            mbatches = {
-                k: x.reshape((grad_accum, x.shape[0] // grad_accum, *x.shape[1:]))
-                for k, x in batch.items()
-            }
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
-                                                   device=p.device), params)
+            mbatches = {k: _microbatches(x, grad_accum) for k, x in batch.items()}
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=accum_dtype), params)
             losses, metrics_all = [], []
             for i in range(grad_accum):
                 (l, m), g = _value_and_grad(loss_of, params,
@@ -107,6 +131,8 @@ def make_serve_step(cfg: ArchConfig, opts: tf.ModelOptions) -> Callable:
     def serve_step(params, state, inputs):
         with torch.no_grad():
             logits, new_state = tf.decode_step(params, cfg, state, inputs, opts)
+            # on a mesh the vocab is gathered first: the argmax of one token a row
+            logits = constrain(logits, ("batch", None))
         next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tokens, new_state
 

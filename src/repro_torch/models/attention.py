@@ -11,8 +11,7 @@ Implementations of ``full_attention``:
                       the CUDA kernel for CUDA tensors, its plain version for
                       CPU tensors. Causal layers only, as in the reference.
 
-The reference's sharding constraints (``constrain``) are no-ops on one device
-and are dropped. Decode writes the new token's K/V into the caller's cache in
+Decode writes the new token's K/V into the caller's cache in
 place, where the reference's ``.at[...].set`` returns a new cache; the
 functions still return the cache, so call sites read the same.
 """
@@ -22,7 +21,11 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed.sharding import (constrain, current_mesh, current_rules,
+                                              global_out, local_in, logical_to_spec,
+                                              shard_dims)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, rms_norm, trunc_normal, zeros
 
@@ -52,13 +55,68 @@ def _project_qkv(p, x, positions, theta, qk_norm):
         k = rms_norm(k, p["k_norm"])
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
+    # "seq" itself is deliberately unsharded here: under SP rules the sequence axis
+    # is only sharded on the residual stream between blocks (Megatron-style).
+    # "seq_attn" is the low-priority fallback: it claims the model axis only when
+    # the head count cannot divide it (context-parallel q; k/v stay full-sequence).
+    q = constrain(q, ("batch", "seq_attn", "heads", "head_dim"))
+    k = constrain(k, ("batch", None, "kv_heads", "head_dim"))
+    v = constrain(v, ("batch", None, "kv_heads", "head_dim"))
     return q, k, v
+
+
+def _block_offset(size: int, device_mesh, placements, dim: int) -> int:
+    """Where this rank's block of tensor dim `dim` starts (DTensor cuts a dim
+    sharded over several mesh dims in mesh-dim order)."""
+    coord = device_mesh.get_coordinate()
+    off, block = 0, size
+    for md, pl in enumerate(placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            block //= device_mesh.size(md)
+            off += coord[md] * block
+    return off
+
+
+def _write_token(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``cache[b, pos[b]] = new[b]`` for every row b of a (B, T, K, hd) cache, in
+    place. On a DTensor cache each rank writes the rows of its batch block
+    whose position falls in its block of T (a sequence-sharded cache): the
+    reference's ``.at[bidx, pos].set`` on a sharded array."""
+    if not isinstance(cache, DTensor):
+        bidx = torch.arange(cache.shape[0], device=cache.device)
+        cache[bidx, pos.long()] = new.to(cache.dtype)
+        return cache
+    mesh, pl = cache.device_mesh, cache.placements
+    # new (B, K, hd) laid out as the cache's batch and head dims; pos as its batch
+    new_pl = [Shard(p.dim - (p.dim >= 2)) if isinstance(p, Shard) and p.dim != 1
+              else Replicate() for p in pl]
+    pos_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pl]
+    local = cache.to_local()
+    new_l = _as_dtensor(new, mesh).redistribute(mesh, new_pl).to_local()
+    pos_l = _as_dtensor(pos, mesh).redistribute(mesh, pos_pl).to_local().long()
+    pos_l = pos_l - _block_offset(cache.shape[1], mesh, pl, 1)
+    mine = (pos_l >= 0) & (pos_l < local.shape[1])
+    pos_l = pos_l.clamp(0, local.shape[1] - 1)
+    bidx = torch.arange(local.shape[0], device=local.device)
+    local[bidx, pos_l] = torch.where(mine[:, None, None], new_l.to(local.dtype),
+                                     local[bidx, pos_l])
+    return cache
+
+
+def _as_dtensor(x: torch.Tensor, device_mesh) -> DTensor:
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, device_mesh, [Replicate()] * device_mesh.ndim,
+                              run_check=False)
 
 
 def _gqa_scores_mask_values(q, k, v, mask, scale):
     """q:(B,S,N,hd) k,v:(B,T,K,hd) mask:(B?,S,T) bool -> (B,S,N,hd) in v's dtype.
 
-    KV heads are broadcast up to N, as in the reference."""
+    KV heads are broadcast up to N, as in the reference. A DTensor q runs the
+    same core on each rank's rows (``_local_attention``)."""
+    if isinstance(q, DTensor):
+        return _local_attention(q, k, v, mask, scale)
     N = q.shape[2]
     K = k.shape[2]
     if K != N:
@@ -71,6 +129,56 @@ def _gqa_scores_mask_values(q, k, v, mask, scale):
     scores = torch.where(mask[:, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bnst,btnh->bsnh", probs, v)
+
+
+def _local_attention(q: DTensor, k, v, mask, scale):
+    """The attention core on each rank's shards, a ``local_map`` of the plain
+    core. Every (batch, query, head) row is independent, so with q as it is
+    sharded (batch, query rows and heads) each rank needs its batch rows of
+    k, v and the mask, all T keys, and the KV heads of its query heads: it
+    computes its rows alone, and their gradients into k and v are summed
+    over the ranks that split the queries or heads."""
+    mesh = current_mesh()
+    q_dims = shard_dims(q, mesh)
+    if 3 in q_dims.values():
+        raise ValueError("attention with the head dim sharded is not supported")
+    batch = {a: 0 for a, d in q_dims.items() if d == 0}
+    split = tuple(a for a, d in q_dims.items() if d in (1, 2))
+    kl = local_in(k, mesh, batch, grad_partial=split)
+    vl = local_in(v, mesh, batch, grad_partial=split)
+    if mask.dim() == 2:
+        mask = mask[None]
+    ml = local_in(mask, mesh, {a: d for a, d in q_dims.items()
+                               if d in (0, 1) and mask.shape[d] == q.shape[d]})
+    ql = q.to_local()
+    # the KV heads broadcast up to N, as the plain core does, cut to this
+    # rank's query heads (on one rank the cut is the whole: the plain core)
+    G = q.shape[2] // k.shape[2]
+    n0 = _block_offset(q.shape[2], q.device_mesh, q.placements, 2)
+    if G > 1:
+        kl, vl = kl.repeat_interleave(G, dim=2), vl.repeat_interleave(G, dim=2)
+    kl, vl = kl.narrow(2, n0, ql.shape[2]), vl.narrow(2, n0, ql.shape[2])
+    out = _gqa_scores_mask_values(ql, kl, vl, ml, scale)
+    return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False)
+
+
+def _out_projection(out, wo):
+    """out (B, S, N, hd) @ wo (N, hd, D) -> (B, S, D). A DTensor `out` runs the
+    reference's einsum on each rank's heads (its shards of out and of wo)
+    and sums over the mesh axes that split the heads (tensor parallelism);
+    DTensor's own einsum would flatten the heads behind the head dim, which
+    it cannot do while they are sharded."""
+    if not isinstance(out, DTensor):
+        return torch.einsum("bsnh,nhd->bsd", out, wo)
+    mesh = current_mesh()
+    dims = shard_dims(out, mesh)
+    heads = tuple(a for a, d in dims.items() if d == 2)
+    rows = {a: d for a, d in dims.items() if d in (0, 1)}
+    if len(heads) + len(rows) != len(dims):
+        raise ValueError("attention output with the head dim sharded is not supported")
+    w = local_in(wo, mesh, {a: 0 for a in heads}, grad_partial=tuple(rows))
+    y = torch.einsum("bsnh,nhd->bsd", out.to_local(), w)
+    return global_out(y, mesh, rows, reduce_axes=heads)
 
 
 def _auto_q_block(B: int, S: int, N: int) -> int:
@@ -134,8 +242,14 @@ def full_attention(
                 else (qpos - kpos).abs() < max(window, S + 1))
         out = _gqa_scores_mask_values(q, k, v, mask, scale)
 
-    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"])
-    return out, (k, v)
+    out = _out_projection(out, p["wo"])
+    # cache layout for the (k, v) return: prefill caches shard their seq dim when
+    # kv heads cannot (GQA K < tp); no-op in train rules (cache_seq=None there).
+    kv_out = (
+        constrain(k, ("batch", "cache_seq", "kv_heads", "head_dim")),
+        constrain(v, ("batch", "cache_seq", "kv_heads", "head_dim")),
+    )
+    return constrain(out, ("batch", "seq", "embed")), kv_out
 
 
 def decode_attention(
@@ -153,29 +267,60 @@ def decode_attention(
     """One-token decode against the cache. Returns (out, k_cache, v_cache); the
     caches are the caller's tensors with the new token written in place.
 
-    ``flash_layout`` selects the reference's sequence-sharded score layout only
-    when the cache's sequence dim is sharded (``_cache_seq_sharded``), which
-    is never the case without a device mesh; on one device both settings take
-    the same einsum path, as here."""
-    del flash_layout
-    B = x.shape[0]
+    ``flash_layout`` selects the reference's sequence-sharded score layout when
+    the cache's sequence dim is sharded (``_cache_seq_sharded``), which needs
+    a mesh; without one both settings take the same einsum path."""
     T = k_cache.shape[1]
     positions = lengths[:, None].to(torch.int32)               # (B, 1)
     q, k_new, v_new = _project_qkv(p, x, positions, theta, qk_norm)
 
-    bidx = torch.arange(B, device=x.device)
-    pos = lengths.long()
-    k_cache[bidx, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[bidx, pos] = v_new[:, 0].to(v_cache.dtype)
+    k_cache = _write_token(k_cache, k_new[:, 0], lengths)
+    v_cache = _write_token(v_cache, v_new[:, 0], lengths)
+    k_cache = constrain(k_cache, ("batch", "cache_seq", "kv_heads", "head_dim"))
+    v_cache = constrain(v_cache, ("batch", "cache_seq", "kv_heads", "head_dim"))
 
     jpos = torch.arange(T, dtype=torch.int32, device=x.device)[None, :]   # (1, T)
     valid = (jpos <= lengths[:, None]) & (lengths[:, None] - jpos < window)
 
     scale = q.shape[-1] ** -0.5
-    out = _gqa_scores_mask_values(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                                  valid[:, None, :], scale)
-    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"])
-    return out, k_cache, v_cache
+    if flash_layout and _cache_seq_sharded(k_cache):
+        # Flash-decoding layout: the cache is sequence-sharded (GQA K < tp), so
+        # keep the WHOLE score/value computation sequence-sharded — the softmax
+        # reductions over sharded T become two tiny all-reduces instead of
+        # resharding the cache to head sharding and back every layer.
+        N = q.shape[2]
+        K = k_cache.shape[2]
+        k = k_cache.to(q.dtype)
+        v = v_cache.to(q.dtype)
+        if K != N:
+            G = N // K
+            k = k.repeat_interleave(G, dim=2)
+            v = v.repeat_interleave(G, dim=2)
+        k = constrain(k, ("batch", "cache_seq", None, "head_dim"),
+                      priority=("cache_seq",))
+        v = constrain(v, ("batch", "cache_seq", None, "head_dim"),
+                      priority=("cache_seq",))
+        scores = torch.einsum("bsnh,btnh->bnst", q, k).float() * scale
+        scores = constrain(scores, ("batch", None, None, "cache_seq"),
+                           priority=("cache_seq",))
+        scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.einsum("bnst,btnh->bsnh", probs, v)
+    else:
+        out = _gqa_scores_mask_values(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                                      valid[:, None, :], scale)
+    out = _out_projection(out, p["wo"])
+    return constrain(out, ("batch", "seq", "embed")), k_cache, v_cache
+
+
+def _cache_seq_sharded(k_cache: torch.Tensor) -> bool:
+    """True when the active rules shard this cache's sequence dim (GQA K < tp)."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None:
+        return False
+    spec = logical_to_spec(("batch", "cache_seq", "kv_heads", "head_dim"),
+                           rules, mesh, k_cache.shape)
+    return len(spec) > 1 and spec[1] is not None
 
 
 def decode_attention_ring(
@@ -195,15 +340,13 @@ def decode_attention_ring(
     instead of O(context). RoPE is applied at absolute positions before storing, so
     ring rotation never re-rotates keys.
     """
-    B = x.shape[0]
     W = k_ring.shape[1]
     positions = lengths[:, None].to(torch.int32)
     q, k_new, v_new = _project_qkv(p, x, positions, theta, qk_norm)
 
-    bidx = torch.arange(B, device=x.device)
-    slot = (lengths % W).long()
-    k_ring[bidx, slot] = k_new[:, 0].to(k_ring.dtype)
-    v_ring[bidx, slot] = v_new[:, 0].to(v_ring.dtype)
+    slot = lengths % W
+    k_ring = _write_token(k_ring, k_new[:, 0], slot)
+    v_ring = _write_token(v_ring, v_new[:, 0], slot)
 
     j = torch.arange(W, dtype=torch.int32, device=x.device)[None, :]      # (1, W)
     p_j = lengths[:, None] - torch.remainder(lengths[:, None] - j, W)      # absolute positions
@@ -212,5 +355,5 @@ def decode_attention_ring(
     scale = q.shape[-1] ** -0.5
     out = _gqa_scores_mask_values(q, k_ring.to(q.dtype), v_ring.to(q.dtype),
                                   valid[:, None, :], scale)
-    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"])
-    return out, k_ring, v_ring
+    out = _out_projection(out, p["wo"])
+    return constrain(out, ("batch", "seq", "embed")), k_ring, v_ring

@@ -14,6 +14,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -23,7 +25,10 @@ def dtype_of(name: str) -> torch.dtype:
 # ----------------------------------------------------------------------------- init
 def trunc_normal(gen: torch.Generator, shape, scale: float, dtype=torch.float32,
                  device="cuda") -> torch.Tensor:
-    """Fan-in-scaled truncated normal (std = scale / sqrt(fan_in)), drawn in fp32."""
+    """Fan-in-scaled truncated normal (std = scale / sqrt(fan_in)), drawn in fp32.
+    On the meta device (shapes only) nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale / math.sqrt(fan_in)
     t = torch.empty(shape, dtype=torch.float32, device=device)
@@ -100,4 +105,5 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, activation: str) -> torch.T
         h = _act(inner, x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = _act(activation, x @ p["w_up"])
+    h = constrain(h, ("batch", None, "ff"))
     return h @ p["w_down"]

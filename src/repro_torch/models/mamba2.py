@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.mamba2_ssd.ops import ssd, ssd_decode_step
 from repro_torch.models.layers import ones, rms_norm, trunc_normal, zeros
 
@@ -80,12 +81,13 @@ def mamba2_block(
     dt = F.softplus(dt.float() + p["dt_bias"][None, None])      # (B,S,H)
     A = -torch.exp(p["A_log"])
     xh = xi.reshape(B, S, H, P)
+    xh = constrain(xh, ("batch", None, "heads", "head_dim"))
 
     y, ssd_state = ssd(xh, dt, A, Bc, Cc, p["D"], state["ssd"], impl=impl)
     y = y.reshape(B, S, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])
     out = y @ p["out_proj"]
-    return out, {"conv": conv_state, "ssd": ssd_state}
+    return constrain(out, ("batch", "seq", "embed")), {"conv": conv_state, "ssd": ssd_state}
 
 
 def mamba2_decode(

@@ -5,8 +5,7 @@ w_t from a LoRA on the token-shifted input (``w_t = exp(-exp(w0 + tanh(x_w @ A)
 @ B))``), the bonus term u, token-shift interpolation with static per-projection
 mu (the reference leaves out RWKV6's ddlerp LoRA, and so does the port). The
 WKV recurrence lives in ``kernels/rwkv6_scan`` (ref | chunked | pallas, the
-last the CUDA kernel for CUDA tensors). The reference's sharding hints
-(``constrain``) have no counterpart on one card and are dropped.
+last the CUDA kernel for CUDA tensors).
 
 Dtypes follow the reference: the decay runs in fp32, so w reaches the WKV
 kernel as fp32 while r, k and v keep the activation dtype; the fp32 WKV output
@@ -22,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.rwkv6_scan.ops import wkv6, wkv6_decode_step
 from repro_torch.models.layers import ones, rms_norm, trunc_normal, zeros
 
@@ -71,6 +71,14 @@ def _decay(p, xw: torch.Tensor) -> torch.Tensor:
     return torch.exp(-torch.exp(logit))
 
 
+def _split_heads(t: torch.Tensor, H: int, hd: int) -> torch.Tensor:
+    """(..., H * hd) -> (..., H, hd). On a mesh the merged dim is laid out
+    unsharded first, as the rules give it ("heads_merged" names no mesh
+    axis), so the view never splits a dim sharded over the mesh."""
+    t = constrain(t, ("batch",) + (None,) * (t.dim() - 1))
+    return t.reshape(*t.shape[:-1], H, hd)
+
+
 def _group_norm(y: torch.Tensor, ln_x: torch.Tensor, H: int, hd: int) -> torch.Tensor:
     """The per-head group norm (unit scale), then the learned ln_x over D."""
     shape = y.shape
@@ -84,6 +92,8 @@ def _channel_mix(p, h: torch.Tensor, hx: torch.Tensor) -> torch.Tensor:
     xk = h + (hx - h) * cmu[0]
     xr = h + (hx - h) * cmu[1]
     kk = torch.square(F.relu(xk @ p["ck"]))
+    if h.dim() == 3:                      # the block; decode passes (B, D)
+        kk = constrain(kk, ("batch", None, "ff"))
     return torch.sigmoid(xr @ p["cr"]) * (kk @ p["cv"])
 
 
@@ -104,11 +114,14 @@ def rwkv6_block(
     def lerp(i):
         return x + (xx - x) * mu[i]
 
-    r = (lerp(0) @ p["wr"]).reshape(B, S, H, hd)
-    k = (lerp(1) @ p["wk"]).reshape(B, S, H, hd)
-    v = (lerp(2) @ p["wv"]).reshape(B, S, H, hd)
+    r = _split_heads(lerp(0) @ p["wr"], H, hd)
+    k = _split_heads(lerp(1) @ p["wk"], H, hd)
+    v = _split_heads(lerp(2) @ p["wv"], H, hd)
     g = F.silu(lerp(3) @ p["wg"])
-    w = _decay(p, lerp(4)).reshape(B, S, H, hd)
+    w = _split_heads(_decay(p, lerp(4)), H, hd)
+    r = constrain(r, ("batch", None, "heads", "head_dim"))
+    k = constrain(k, ("batch", None, "heads", "head_dim"))
+    v = constrain(v, ("batch", None, "heads", "head_dim"))
 
     y, wkv_state = wkv6(r, k, v, w, p["u"], state["wkv"], impl=impl)
     y = _group_norm(y.reshape(B, S, D).to(x.dtype), p["ln_x"], H, hd)
@@ -136,11 +149,11 @@ def rwkv6_decode(
     def lerp(i):
         return xt + (xx - xt) * mu[i]
 
-    r = (lerp(0) @ p["wr"]).reshape(B, H, hd)
-    k = (lerp(1) @ p["wk"]).reshape(B, H, hd)
-    v = (lerp(2) @ p["wv"]).reshape(B, H, hd)
+    r = _split_heads(lerp(0) @ p["wr"], H, hd)
+    k = _split_heads(lerp(1) @ p["wk"], H, hd)
+    v = _split_heads(lerp(2) @ p["wv"], H, hd)
     g = F.silu(lerp(3) @ p["wg"])
-    w = _decay(p, lerp(4)[:, None, :])[:, 0].reshape(B, H, hd)
+    w = _split_heads(_decay(p, lerp(4)[:, None, :])[:, 0], H, hd)
 
     y, wkv_state = wkv6_decode_step(r, k, v, w, p["u"], state["wkv"])
     y = _group_norm(y.reshape(B, D).to(xt.dtype), p["ln_x"], H, hd)

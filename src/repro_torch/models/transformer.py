@@ -28,10 +28,14 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.offload import offload_checkpoint_policy, remat
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (constrain, current_mesh, current_rules,
+                                              gather_fsdp, global_out, local_in,
+                                              shard_dims)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as ll
 from repro_torch.models import mamba2 as m2
@@ -106,8 +110,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Dict[st
 
     `gen` must live on `device` (``torch.Generator(device=...)``). The draws
     differ from the reference's ``jax.random`` streams; parity tests carry the
-    reference's parameters across with ``repro_torch.interop`` instead."""
-    dev = resolve_device(device)
+    reference's parameters across with ``repro_torch.interop`` instead. On
+    ``device="meta"`` the tree holds shapes only and `gen` may be None (the
+    specs' route, ``launch/specs.py``)."""
+    dev = resolve_device(device, shapes_only=True)
     dtype = dtype_of(cfg.param_dtype)
     D, V, L = cfg.d_model, cfg.padded_vocab, cfg.num_layers
     params: Dict[str, Any] = {}
@@ -130,31 +136,136 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Dict[st
     return params
 
 
+# ------------------------------------------------------------------------- axes
+def _attn_stack_axes(cfg: ArchConfig, use_moe: bool):
+    ax: Dict[str, Any] = {
+        "ln1": ("layers", None),
+        "ln2": ("layers", None),
+        "attn": {
+            "wq": ("layers", "fsdp", "heads", None),
+            "wk": ("layers", "fsdp", "kv_heads", None),
+            "wv": ("layers", "fsdp", "kv_heads", None),
+            "wo": ("layers", "heads", None, "fsdp"),
+        },
+    }
+    if cfg.qk_norm:
+        ax["attn"]["q_norm"] = ("layers", None)
+        ax["attn"]["k_norm"] = ("layers", None)
+    if cfg.post_norms:
+        ax["post_ln1"] = ("layers", None)
+        ax["post_ln2"] = ("layers", None)
+    if use_moe:
+        ax["moe"] = {
+            "router": ("layers", None, None),
+            "w_gate": ("layers", "experts", "fsdp", "expert_ff"),
+            "w_up": ("layers", "experts", "fsdp", "expert_ff"),
+            "w_down": ("layers", "experts", "expert_ff", "fsdp"),
+        }
+        if cfg.num_shared_experts:
+            ax["moe"]["s_gate"] = ("layers", "fsdp", "ff")
+            ax["moe"]["s_up"] = ("layers", "fsdp", "ff")
+            ax["moe"]["s_down"] = ("layers", "ff", "fsdp")
+    else:
+        mats = (
+            {"w_gate", "w_up", "w_down"}
+            if cfg.mlp_activation in ("swiglu", "gelu_glu")
+            else {"w_up", "w_down"}
+        )
+        ax["mlp"] = {
+            m: (("layers", "ff", "fsdp") if m == "w_down" else ("layers", "fsdp", "ff"))
+            for m in mats
+        }
+    return ax
+
+
+def param_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    """Pytree of logical-axis tuples mirroring init_params' structure."""
+    axes: Dict[str, Any] = {}
+    if cfg.input_mode == "tokens":
+        axes["embed"] = ("vocab", "fsdp")
+    if cfg.family == "ssm":
+        axes["blocks"] = {
+            "mu": ("layers", None, None),
+            "wr": ("layers", "fsdp", "heads_merged"),
+            "wk": ("layers", "fsdp", "heads_merged"),
+            "wv": ("layers", "fsdp", "heads_merged"),
+            "wg": ("layers", "fsdp", "heads_merged"),
+            "wo": ("layers", "heads_merged", "fsdp"),
+            "w0": ("layers", None),
+            "wA": ("layers", "fsdp", None),
+            "wB": ("layers", None, None),
+            "u": ("layers", "heads", None),
+            "ln_x": ("layers", None),
+            "cmu": ("layers", None, None),
+            "ck": ("layers", "fsdp", "ff"),
+            "cv": ("layers", "ff", "fsdp"),
+            "cr": ("layers", "fsdp", "heads_merged"),
+        }
+    elif cfg.family == "hybrid":
+        axes["blocks"] = {
+            "in_proj": ("layers", "fsdp", "heads_merged"),
+            "conv_w": ("layers", None, "heads_merged"),
+            "conv_b": ("layers", "heads_merged"),
+            "A_log": ("layers", None),
+            "D": ("layers", None),
+            "dt_bias": ("layers", None),
+            "norm": ("layers", "heads_merged"),
+            "out_proj": ("layers", "heads_merged", "fsdp"),
+        }
+        axes["shared_attn"] = _attn_stack_axes(cfg, use_moe=False)
+    else:
+        if cfg.moe and cfg.moe_first_dense:
+            axes["dense_stack"] = _attn_stack_axes(cfg, use_moe=False)
+        axes["stack"] = _attn_stack_axes(cfg, cfg.moe)
+    axes["final_norm"] = (None,)
+    if not (cfg.tie_embeddings and cfg.input_mode == "tokens"):
+        axes["unembed"] = ("fsdp", "vocab")
+    return axes
+
+
 # ------------------------------------------------------------------------- embed
 def embed_inputs(params, cfg: ArchConfig, inputs: torch.Tensor) -> torch.Tensor:
     """Token ids (B, S), or embeddings (B, S, D) for the vlm/audio frontend
     stubs, -> activations (B, S, D) in the config's dtype."""
     dtype = dtype_of(cfg.dtype)
     if cfg.input_mode == "tokens":
-        h = params["embed"][inputs].to(dtype)
+        rules = current_rules() or {}
+        if current_mesh() is not None and rules.get("vocab") is not None:
+            # one-hot matmul lookup: a gather against a 2D-sharded table would
+            # all-gather the whole embedding; the one-hot product stays
+            # vocab-sharded and reduces with one small all-reduce. It gives the
+            # gathered rows exactly (one nonzero product a sum).
+            V = params["embed"].shape[0]
+            vocab = torch.arange(V, device=inputs.device)
+            oh = (inputs[..., None] == vocab).to(params["embed"].dtype)
+            oh = constrain(oh, ("batch", None, "vocab"))
+            h = (oh @ gather_fsdp(params["embed"])).to(dtype)
+        elif isinstance(inputs, DTensor):
+            # each rank looks its own tokens up in the replicated table
+            mesh = current_mesh()
+            dims = shard_dims(inputs, mesh)
+            table = local_in(params["embed"], mesh, {}, grad_partial=tuple(dims))
+            h = global_out(table[inputs.to_local()], mesh, dims).to(dtype)
+        else:
+            h = params["embed"][inputs].to(dtype)
     else:
         h = inputs.to(dtype)
     if cfg.scale_embedding:
         # The reference rounds sqrt(d_model) to the activation dtype before
         # multiplying (sqrt(1152) = 33.94 becomes 34.0 in bf16); so does this.
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype).item()
-    return h
+    return constrain(h, ("batch", "seq", "embed"))
 
 
 def unembed(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """Final norm + vocab projection; padded vocab entries are masked to -1e30."""
     h = ll.rms_norm(h, params["final_norm"])
-    w = params["embed"].T if _tied(cfg) else params["unembed"]
+    w = gather_fsdp(params["embed"]).T if _tied(cfg) else gather_fsdp(params["unembed"])
     logits = (h @ w.to(h.dtype)).float()
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad_mask, -1e30)
-    return logits
+    return constrain(logits, ("batch", None, "vocab"))
 
 
 # ------------------------------------------------------------------------- blocks
@@ -194,6 +305,7 @@ def _finish_block(p, h, a_out, cfg: ArchConfig, moe_impl: str = "ep"):
 def _attn_block_body(p, h, window: int, cfg: ArchConfig, opts: ModelOptions):
     """One pre-norm block over the full sequence. Returns (h, aux, (k, v)),
     aux as ``_finish_block`` gives it."""
+    p = gather_fsdp(p)
     a_out, kv = attn.full_attention(
         p["attn"], ll.rms_norm(h, p["ln1"]),
         window=window, causal=cfg.causal, theta=cfg.rope_theta,
@@ -277,7 +389,8 @@ def _ssm_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: boo
     run = _layer_runner(opts, h.device)
     states = []
     for p in _layers(params["blocks"], cfg.num_layers):
-        h, st = run(lambda hh, p=p: rk.rwkv6_block(p, hh, state, cfg, impl=opts.wkv_impl), h)
+        h, st = run(lambda hh, p=p: rk.rwkv6_block(gather_fsdp(p), hh, state, cfg,
+                                                        impl=opts.wkv_impl), h)
         if collect_kv:
             states.append(st)
     return h, ({"rwkv": _stack_states(states)} if collect_kv else {})
@@ -290,7 +403,7 @@ def _hybrid_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: 
     run = _layer_runner(opts, h.device, offload=False)
 
     def body(p, attn_here, hh):
-        out, st = m2.mamba2_block(p, hh, state, cfg, impl=opts.ssd_impl)
+        out, st = m2.mamba2_block(gather_fsdp(p), hh, state, cfg, impl=opts.ssd_impl)
         hh = hh + out
         kv = None
         if attn_here:
@@ -321,21 +434,31 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     The reference's arithmetic: the normalizer over ``logits - max`` with the
     max held constant (``.detach()`` for its ``stop_gradient``), the optional
     ``weights``, the z-loss ``1e-4 * mean(lse^2)``, and the aux loss times
-    ``moe_aux_loss_coef``. The label logit is a gather where the reference
-    sums an iota mask (its way of keeping vocab-sharded logits sharded): the
-    same value, without a second (B, S, V) tensor."""
+    ``moe_aux_loss_coef``. Without a mesh the label logit is a gather where
+    the reference sums an iota mask (its way of keeping vocab-sharded logits
+    sharded): the same value, without a second (B, S, V) tensor. Under a
+    mesh it is the reference's mask."""
     logits, aux, _ = forward(params, cfg, batch["inputs"], opts)
     labels = batch["targets"].long()
     weights = batch.get("weights")
     mx = torch.amax(logits, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(logits - mx), dim=-1)) + mx[..., 0]
-    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if current_mesh() is None:
+        label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        # the reference's iota mask keeps vocab-sharded logits sharded
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        label_logit = torch.sum(
+            torch.where(vocab == labels[..., None], logits, 0.0), dim=-1)
     nll = lse - label_logit
     if weights is None:
         weights = torch.ones_like(nll)
     ce = torch.sum(nll * weights) / torch.clamp(torch.sum(weights), min=1.0)
     # z-loss stabilizes the softmax normalizer at scale (reuses lse)
     zl = 1e-4 * torch.mean(torch.square(lse))
+    # on a mesh the terms are partial sums and means over the batch shards:
+    # replicate each (a scalar's logical axes are ()) before they meet
+    ce, zl = constrain(ce, ()), constrain(zl, ())
     total = ce + zl + cfg.moe_aux_loss_coef * aux
     return total, {"ce": ce, "aux": aux, "z_loss": zl}
 
@@ -390,7 +513,8 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any], inputs: torch.Te
     if cfg.family == "ssm":
         states = []
         for i in range(cfg.num_layers):
-            h, st = rk.rwkv6_decode(_layer(params["blocks"], i), h, _layer(state["rwkv"], i), cfg)
+            h, st = rk.rwkv6_decode(gather_fsdp(_layer(params["blocks"], i)), h,
+                                    _layer(state["rwkv"], i), cfg)
             states.append(st)
         new_state["rwkv"] = _stack_states(states)
     elif cfg.family == "hybrid":
@@ -405,7 +529,7 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any], inputs: torch.Te
         for name, cache_key, wins in stacks:
             kc, vc = state[cache_key]
             for i, window in enumerate(wins):
-                p = _layer(params[name], i)
+                p = gather_fsdp(_layer(params[name], i))
                 a_out, _, _ = attn.decode_attention(
                     p["attn"], ll.rms_norm(h, p["ln1"]), kc[i], vc[i], lengths,
                     window=int(window), theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
@@ -429,7 +553,7 @@ def _sliding_ring_decode(params, cfg: ArchConfig, state, h, new_state,
     gk, gv = state["kv_global"]
     g = 0
     for i in range(cfg.num_layers):
-        p = _layer(params["stack"], i)
+        p = gather_fsdp(_layer(params["stack"], i))
         x = ll.rms_norm(h, p["ln1"])
         if windows[i] >= BIG_WINDOW:
             a_out, _, _ = attn.decode_attention(
@@ -451,12 +575,12 @@ def _sliding_ring_decode(params, cfg: ArchConfig, state, h, new_state,
 
 def _hybrid_decode(params, cfg: ArchConfig, state, h, new_state, opts: ModelOptions):
     lengths = state["lengths"]
-    shared = _layer(params["shared_attn"], 0)
+    shared = gather_fsdp(_layer(params["shared_attn"], 0))
     kbuf, vbuf = state["shared_kv"]
     states = []
     inv = 0
     for i, attn_here in enumerate(_use_attn(cfg)):
-        out, st = m2.mamba2_decode(_layer(params["blocks"], i), h,
+        out, st = m2.mamba2_decode(gather_fsdp(_layer(params["blocks"], i)), h,
                                    _layer(state["mamba"], i), cfg)
         h = h + out
         if attn_here:
@@ -472,3 +596,57 @@ def _hybrid_decode(params, cfg: ArchConfig, state, h, new_state, opts: ModelOpti
     new_state["mamba"] = _stack_states(states)
     new_state["shared_kv"] = (kbuf, vbuf)
     return h
+
+
+# ------------------------------------------------------------------------- axes
+def prefill_cache_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    """Logical axes for the caches returned by forward(collect_kv=True)."""
+    kv_ax = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    if cfg.family == "ssm":
+        return {
+            "rwkv": {
+                "tm_x": ("layers", "batch", None),
+                "cm_x": ("layers", "batch", None),
+                "wkv": ("layers", "batch", "heads", None, None),
+            }
+        }
+    if cfg.family == "hybrid":
+        return {
+            "mamba": {
+                "conv": ("layers", "batch", None, "heads_merged"),
+                "ssd": ("layers", "batch", "heads", None, "state"),
+            },
+            "shared_kv": (kv_ax, kv_ax),
+        }
+    ax: Dict[str, Any] = {"kv": (kv_ax, kv_ax)}
+    if cfg.moe and cfg.moe_first_dense:
+        ax["dense_kv"] = (kv_ax, kv_ax)
+    return ax
+
+
+def decode_state_axes(cfg: ArchConfig, sliding_ring: bool = False) -> Dict[str, Any]:
+    """Logical axes for the decode state pytree (mirrors init_decode_state)."""
+    kv_ax = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    ax: Dict[str, Any] = {"lengths": ("batch",)}
+    if sliding_ring and cfg.attention_kind == "sliding_global":
+        ring_ax = ("layers", "batch", None, "kv_heads", "head_dim")
+        ax["kv_ring"] = (ring_ax, ring_ax)
+        ax["kv_global"] = (kv_ax, kv_ax)
+        return ax
+    if cfg.family == "ssm":
+        ax["rwkv"] = {
+            "tm_x": ("layers", "batch", None),
+            "cm_x": ("layers", "batch", None),
+            "wkv": ("layers", "batch", "heads", None, None),
+        }
+    elif cfg.family == "hybrid":
+        ax["mamba"] = {
+            "conv": ("layers", "batch", None, "heads_merged"),
+            "ssd": ("layers", "batch", "heads", None, "state"),
+        }
+        ax["shared_kv"] = (kv_ax, kv_ax)
+    else:
+        if cfg.moe and cfg.moe_first_dense:
+            ax["dense_kv"] = (kv_ax, kv_ax)
+        ax["kv"] = (kv_ax, kv_ax)
+    return ax

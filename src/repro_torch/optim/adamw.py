@@ -13,6 +13,13 @@ The step counter, ``lr`` and the bias corrections are fp32 tensors on the
 device, as the reference computes them, never Python floats. The update is
 in place (ROADMAP C.6): ``apply_update`` returns the caller's parameter and
 state tensors, updated; only ``step`` is a new tensor.
+
+On a mesh the parameters, gradients and state are DTensors, the state placed
+by ``launch/specs.py::opt_state_shardings`` and, with ``offload_state``,
+each rank's shards in pinned host memory. The update runs shard-locally on
+the state's placements: under ``train_zero1`` the state is sharded over all
+axes while the parameters are replicated, so each rank updates its slice of
+the master and the new parameters are all-gathered from the slices.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.core.offload import DEVICE, HOST, to_tier
 from repro_torch.tree import leaves, tree_map
@@ -59,8 +67,21 @@ def _state_tier(hp: OptimizerConfig) -> str:
 
 def init_state(params: Any, hp: OptimizerConfig) -> Dict[str, Any]:
     """Zero moments, a zero step and (with ``use_master_fp32``) fp32 masters,
-    in the tier ``hp.offload_state`` names, on the parameters' device."""
-    dev = leaves(params)[0].device
+    in the tier ``hp.offload_state`` names, on the parameters' device. DTensor
+    parameters give DTensor state on their placements, on the device; the
+    launcher places it by ``opt_state_shardings``, host tier included."""
+    p0 = leaves(params)[0]
+    if isinstance(p0, DTensor):
+        return {
+            "m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+            "v": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+            "step": DTensor.from_local(
+                torch.zeros((), dtype=torch.int32, device=p0.to_local().device),
+                p0.device_mesh, [Replicate()] * p0.device_mesh.ndim, run_check=False),
+            **({"master": tree_map(lambda p: p.to(torch.float32, copy=True), params)}
+               if hp.use_master_fp32 else {}),
+        }
+    dev = p0.device
     tier = _state_tier(hp)
 
     def zeros32(p):
@@ -80,6 +101,9 @@ def init_state(params: Any, hp: OptimizerConfig) -> Dict[str, Any]:
 
 def global_norm(tree: Any) -> torch.Tensor:
     sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    # a DTensor leaf's sum is reduced over its shards first (one all-reduce
+    # a leaf), so the stack sums plain scalars
+    sq = [s.full_tensor() if isinstance(s, DTensor) else s for s in sq]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
@@ -91,6 +115,35 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]
 
 def _fetch(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return t.to(dev, non_blocking=True) if t.device != dev else t
+
+
+def _plain(x):
+    """A replicated DTensor scalar as a plain tensor; anything else as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _shard_local(p, g, m_s, v_s, w_s):
+    """The update's operands as local tensors on the state's placements. A
+    parameter (and its gradient) placed otherwise, as replicated ones under
+    ``train_zero1``, contributes its slice; the returned `finish` writes the
+    updated fp32 slice back into the parameter, all-gathering it there."""
+    if not isinstance(p, DTensor):
+        return p, g, m_s, v_s, w_s, lambda p32: p.copy_(p32)
+    mesh, target = m_s.device_mesh, m_s.placements
+    same = tuple(target) == tuple(p.placements)
+    g_l = (g if same else g.redistribute(mesh, target)).to_local()
+    p_l = p.to_local() if same else p.redistribute(mesh, target).to_local()
+
+    def finish(p32):
+        if same:
+            p_l.copy_(p32)
+            return
+        piece = DTensor.from_local(p32.to(p.dtype), mesh, target, run_check=False,
+                                   shape=p.shape, stride=p.stride())
+        p.to_local().copy_(piece.redistribute(mesh, p.placements).to_local())
+
+    local = (lambda s: s.to_local() if s is not None else None)
+    return p_l, g_l, local(m_s), local(v_s), local(w_s), finish
 
 
 def apply_update(
@@ -108,7 +161,7 @@ def apply_update(
     with torch.no_grad():
         gnorm = global_norm(grads)
         scale = torch.clamp(hp.grad_clip_norm / (gnorm + 1e-9), max=1.0)
-        step = state["step"] + 1
+        step = _plain(state["step"]) + 1
         lr = schedule(step, hp)
         b1, b2 = hp.b1, hp.b2
         bc1 = 1 - torch.pow(b1, step.float())
@@ -116,6 +169,7 @@ def apply_update(
         masters = leaves(state["master"]) if hp.use_master_fp32 else [None] * len(leaves(params))
         for p, g, m_s, v_s, w_s in zip(leaves(params), leaves(grads), leaves(state["m"]),
                                        leaves(state["v"]), masters, strict=True):
+            p, g, m_s, v_s, w_s, finish = _shard_local(p, g, m_s, v_s, w_s)
             dev = p.device
             m, v = _fetch(m_s, dev), _fetch(v_s, dev)
             g32 = g.float() * scale
@@ -124,10 +178,13 @@ def apply_update(
             p32 = _fetch(w_s, dev) if w_s is not None else p.float()
             u = (m / bc1) / (torch.sqrt(v / bc2) + hp.eps) + hp.weight_decay * p32
             p32.sub_(lr * u)
-            p.copy_(p32)
+            finish(p32)
             for dst, src in ((m_s, m), (v_s, v), (w_s, p32)):
                 if dst is not None and dst is not src:
                     dst.copy_(src, non_blocking=True)
+    if isinstance(state["step"], DTensor):
+        step = DTensor.from_local(step, state["step"].device_mesh,
+                                  state["step"].placements, run_check=False)
     new_state = dict(state, step=step)
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
 

@@ -7,6 +7,7 @@ observed plus the session's modeled state. The same program runs through
 exactly: modeled statistics with ``==``, bytes with ``array_equal``.
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -325,3 +326,23 @@ def test_tiers_report_the_memory_they_use(sess):
     buf = sess.alloc(16, REMOTE)
     data = lib.allocations()[buf.address].data
     assert data.dtype == torch.uint8 and data.device.type == "cpu" and not data.is_pinned()
+
+
+def test_h100_model_is_offered_beside_v5e():
+    """ROADMAP A.12: an H100 hardware model from the card's data sheet. V5E
+    stays the default, so a session built without one models the reference's
+    times; H100 changes only what it is passed to."""
+    import repro.core.hw as r_hw
+    import repro_torch.core.hw as t_hw
+
+    assert t_hw.V5E == t_hw.HardwareModel() and \
+        dataclasses.asdict(t_hw.V5E) == dataclasses.asdict(r_hw.V5E)
+    h = t_hw.H100
+    assert (h.hbm_bandwidth, h.peak_flops_bf16, h.hbm_capacity) == (3.35e12, 989e12, 80 * 2**30)
+    assert h.host_link_bandwidth == 64e9 and h.ici_link_bandwidth * h.ici_links_per_chip == 450e9
+    assert t_emucxl.EmuCXL().hw is t_hw.V5E
+    assert t_emucxl.EmuCXL(hw=h).hw is h
+    n = 1 << 20
+    assert t_hw.V5E.transfer_time(n, 1) == r_hw.V5E.transfer_time(n, 1)
+    assert h.transfer_time(n, 0) < t_hw.V5E.transfer_time(n, 0)
+    assert h.migrate_time(n) < t_hw.V5E.migrate_time(n)

@@ -220,17 +220,23 @@ def test_hybrid_params_match_the_reference_tree():
 @pytest.mark.parametrize("arch,item", [("olmoe-1b-7b", "ROADMAP A.10"),
                                        ("kimi-k2-1t-a32b", "ROADMAP A.10")])
 def test_unported_families_name_their_roadmap_item(models, arch, item):
-    """Every family runs; what is left unported is the MoE layer's mesh
-    variants, which raise naming the item that ports them."""
-    _, _, cfg, params = models[arch]
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    state = t_tf.init_decode_state(params, cfg, 1, 8)
+    """The MoE layer's mesh variants, the last part of the families left
+    unported, are ported by the multi-device layer (`item`): without a mesh
+    each runs the forward and a decode step and gives the reference's
+    logits (ep_ff falls back to ep; *_exact is the roofline stand-in)."""
+    del item
+    cfg_r, params_r, cfg, params = models[arch]
+    toks = _inputs(cfg, 1, 4, seed=11)
     for impl in ("ep_ff", "ep_exact", "ep_ff_exact"):
         opts = t_tf.ModelOptions(moe_impl=impl)
-        with pytest.raises(NotImplementedError, match=item):
-            t_tf.forward(params, cfg, toks, opts)
-        with pytest.raises(NotImplementedError, match=item):
-            t_tf.decode_step(params, cfg, state, toks[:, :1], opts)
+        ref, _, _ = r_tf.forward(params_r, cfg_r, jnp.asarray(toks),
+                                 r_tf.ModelOptions(moe_impl=impl))
+        with torch.no_grad():
+            out, _, _ = t_tf.forward(params, cfg, torch.from_numpy(toks), opts)
+            state = t_tf.init_decode_state(params, cfg, 1, 8)
+            step, _ = t_tf.decode_step(params, cfg, state, torch.from_numpy(toks[:, :1]), opts)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+        assert torch.isfinite(step).all() and tuple(step.shape) == (1, cfg.padded_vocab)
 
 
 @pytest.mark.parametrize("arch", MOE)

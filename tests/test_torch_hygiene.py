@@ -40,7 +40,48 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                           text=True, timeout=120, check=True)
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "repro_torch.serving.engine" in loaded
+    for m in ("repro_torch.launch.dryrun", "repro_torch.launch.specs",
+              "repro_torch.runtime.elastic"):
+        assert m in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+    # the fake process group's test helpers load only when the dry run makes
+    # one (``import torch`` itself loads two other ``_internal`` modules)
+    assert [m for m in loaded if m.startswith("torch.testing._internal.distributed")] == []
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_internal_torch_test_helpers_load_only_in_the_fake_group(path):
+    """``torch.testing._internal`` is imported by no module at import time;
+    only ``launch/dryrun.py::fake_group`` imports it, inside the function."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    where = []
+    for fn in [None, *[n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)]]:
+        body = tree.body if fn is None else fn.body
+        for node in (n for stmt in body for n in ast.walk(stmt)):
+            mod = (node.module if isinstance(node, ast.ImportFrom) else
+                   node.names[0].name if isinstance(node, ast.Import) else None)
+            if mod and mod.startswith("torch.testing._internal"):
+                where.append(fn.name if fn is not None else "<module>")
+    expected = ["<module>", "fake_group"] if path.name == "dryrun.py" else []
+    assert sorted(set(where)) == expected
+
+
+def test_mesh_needs_the_card_and_a_process_group():
+    """A mesh entry point never runs quietly without a process group, and a
+    CUDA mesh raises where there is no card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh, single_device_mesh
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh((2, 4), ("data", "model"), device_type="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_production_mesh(device_type="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            single_device_mesh()
 
 
 @pytest.mark.parametrize("path", [*sorted(PORT.rglob("*.py")), ROOT / "chip_smoke.py"],
@@ -84,16 +125,18 @@ def test_entry_points_default_to_the_card():
 
 
 def test_other_families_name_their_roadmap_item():
-    """Every family runs on the port; the MoE layer's mesh variants do not
-    yet, and name the item that ports them."""
+    """Every family runs on the port, the MoE layer's mesh variants too: with
+    no mesh, ep_ff falls back to ep and gives its logits bit for bit."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import ModelOptions, forward, init_params
 
     cfg = get_config("olmoe-1b-7b").reduced()
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        forward(params, cfg, torch.zeros((1, 4), dtype=torch.int32),
-                ModelOptions(moe_impl="ep_ff"))
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with torch.no_grad():
+        ff, _, _ = forward(params, cfg, toks, ModelOptions(moe_impl="ep_ff"))
+        ep, _, _ = forward(params, cfg, toks, ModelOptions(moe_impl="ep"))
+    assert torch.equal(ff, ep)
 
 
 def test_serve_launcher_runs_on_cpu(capsys):

@@ -192,9 +192,15 @@ def test_bf16_moe_layer_matches(impl):
 
 @pytest.mark.parametrize("impl", ["ep_ff", "ep_exact", "ep_ff_exact"])
 def test_mesh_variants_name_their_roadmap_item(impl):
-    _, _, cfg_t, p_t = _layer("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        t_moe.moe_layer(p_t, torch.zeros((1, 4, cfg_t.d_model)), cfg_t, impl=impl)
+    """The mesh variants, once left to ROADMAP A.10, match the reference's
+    layer with no mesh: ep_ff falls back to ep, and *_exact is the
+    reference's flop-exact stand-in for ragged_dot."""
+    cfg_r, p_r, cfg_t, p_t = _layer("olmoe-1b-7b")
+    x = _x(cfg_t, 2, 24, seed=6)
+    ref, aux_r = r_moe.moe_layer(p_r, jnp.asarray(x), cfg_r, impl=impl)
+    out, aux_t = t_moe.moe_layer(p_t, torch.from_numpy(x), cfg_t, impl=impl)
+    _close(out, ref, ATOL)
+    assert abs(float(aux_t) - float(aux_r)) <= AUX_ATOL
 
 
 def test_init_moe_keeps_the_reference_tree():
