@@ -11,14 +11,16 @@ printed with the wall time of the phase before it:
   2. the paged-attention kernel against its plain PyTorch version on the card,
      at the reference's sweep shapes, the serving shapes, the edges of its
      64-token partitions, and the published group sizes and head dims past
-     the first four (G 7 at hd 128, G 12 at hd 192, hd 80) and olmoe-1b-7b's
-     serving shape;
+     the first four (G 7 at hd 128, G 12 at hd 192, hd 80), olmoe-1b-7b's
+     serving shape and phase 13's decode shapes (gemma3-12b's G 2 at hd 256
+     with window 1024, internvl2-1b's G 7 at hd 64 over pages of 16);
   3. times (median of CUDA-event-timed runs, L2 flushed before each) of that
      kernel, its plain version and a library yardstick, beside the byte bound
      and the bytes a second the kernel reached: at the serving path's shape
      (one partition), a table of two partitions and a long context, with the
      wrapper's host time a call and a profile of flushed calls; then at
-     olmoe-1b-7b's serving shape and at G 7 and G 12;
+     olmoe-1b-7b's serving shape, at G 7 and G 12, and at phase 13's decode
+     shapes;
   4. the serving path at full width: ``repro_torch.launch.serve`` serving
      gemma3-1b (26 layers, d_model 1152) with random bf16 weights, KV pages
      preempted into pinned host memory and promoted back; the kernel's launch
@@ -29,15 +31,17 @@ printed with the wall time of the phase before it:
      sweep (fp32 and bf16, causal and not), the bf16 tensor-core kernel's
      edges (every head dim, ragged S, windows about a tile, non-causal), hd
      80 (non-causal) and 192 (causal and sliding), and the prefill shapes of
-     gemma3-1b, zamba2-1.2b and olmoe-1b-7b, in fp32 and in bf16;
+     gemma3-1b, zamba2-1.2b, olmoe-1b-7b and phase 13's causal models, in
+     fp32 and in bf16;
   6. the Mamba2 SSD kernel against its plain versions: the reference's sweep
      and zamba2-1.2b's shape;
   7. the WKV6 kernel against its plain versions: the reference's sweep and
      rwkv6-3b's shape;
   8. times of the three prefill kernels, their plain versions and, for
-     attention, SDPA as a yardstick, beside the bound at the path shapes and
-     at hd 80 and 192 (for the scans both the operations and the bytes
-     bound), the flops a second flash attention reached, and a profile of
+     attention, SDPA as a yardstick, beside the bound at the path shapes
+     (phase 13's too) and at hd 80 and 192 (for the scans both the
+     operations and the bytes bound), the flops a second flash attention
+     reached, and a profile of
      flushed calls of each scan that gives each of its passes' own device
      time;
   9. the prefill path at full width for gemma3-1b, zamba2-1.2b, rwkv6-3b and
@@ -91,6 +95,27 @@ printed with the wall time of the phase before it:
      device equal to those reckoned from the specs. It prints a
      ``multi_device: {...}`` JSON line with every number and the card's
      name and power limit.
+ 13. every published config that one card holds and no phase above runs,
+     each built at full width with random bf16 weights (seed 0) and freed
+     before the next: deepseek-coder-33b (62 layers, d_model 7168, 56 heads
+     over 8; 62.1 GiB of weights) and gemma3-12b (48 layers, d_model 3840,
+     16 heads over 8 at hd 256, window 1024) through phase 9's prefill path
+     (flash 62 and 48 launches a forward, 16 cached decode steps, every
+     kernel call held against its plain version) and then phase 4's serving
+     path (paged launches = decode steps x layers, pages preempted into
+     pinned host memory and promoted back); internvl2-1b (24 layers, 14
+     heads over 2 at hd 64) prefilled from seeded (B, S, D) bf16
+     embeddings, 16 ``decode_step``s, and 16 ``paged_decode_step``s over
+     pools filled from the prefill's K/V with the kernel and with its
+     plain version (each call within one bf16 ulp; on an fp32 copy each
+     call against fp64, the logits printed); hubert-xlarge (48 layers of
+     16 heads of 80, the encoder) through its non-causal forward with
+     flash (48 a forward), no decode.
+     For each: build time, peak device memory of the build and of the
+     prefill, median forward, the device idle share of one profiled forward
+     and ``prefill_mfu`` (``model_flops(cfg, B*S, "inference")`` over the
+     median forward over 989 TFLOP/s), in a ``one_card: {...}`` JSON line
+     with the card's name and power limit.
 The last two lines are a JSON ``kernels`` record and a JSON result line.
 
 Float32 matmuls run in full precision (TF32 off), so fp32 comparisons on the
@@ -379,6 +404,16 @@ def kernel_vs_plain(ops, ref):
         for window in (WINDOW_GLOBAL, 100):
             cases.append(((B, N, K, hd, 8), lengths, window, torch.bfloat16, 1e-2))
             cases.append(((B, N, K, hd, 8), lengths, window, torch.float32, 2e-5))
+    # Phase 13's decode shapes: gemma3-12b's G 2 at hd 256 (window 1024) over
+    # the serving path's page 8, internvl2-1b's G 7 at hd 64 over the
+    # prefill's pages of 16 (2048 tokens and up to 16 more).
+    for (B, N, K, hd, page), lengths, windows in (
+            ((2, 16, 8, 256, 8), [24, 40], (WINDOW_GLOBAL, 1024)),
+            ((2, 16, 8, 256, 8), [700, 1500], (WINDOW_GLOBAL, 1024)),
+            ((2, 14, 2, 64, 16), [2049, 2064], (WINDOW_GLOBAL, 100))):
+        for window in windows:
+            cases.append(((B, N, K, hd, page), lengths, window, torch.bfloat16, 1e-2))
+            cases.append(((B, N, K, hd, page), lengths, window, torch.float32, 2e-5))
     for i, ((B, N, K, hd, page), lengths, window, q_dtype, tol) in enumerate(cases):
         q, kp, vp, table, lens = paged_inputs(B, N, K, hd, page, lengths, q_dtype, seed=i)
         out = ops.paged_attention(q, kp, vp, table, lens, window, scale=hd ** -0.5)
@@ -411,7 +446,9 @@ def timings(ops, ref, flush):
     path's own (a 5-page table, one partition, no combine), a 16-page table
     (two partitions and the combine) and a long context; then olmoe-1b-7b's
     serving shape, and G 7 (deepseek-coder-33b) and G 12 at hd 192
-    (nemotron-4-340b) at a 1024-token context, without the profiles."""
+    (nemotron-4-340b) at a 1024-token context, and phase 13's decode shapes
+    (deepseek-coder-33b and gemma3-12b serving, internvl2-1b's decode after
+    its 2048-token prefill), without the profiles."""
     from repro_torch.kernels.paged_attention.paged_attention import num_partitions
 
     phase("times")
@@ -421,7 +458,10 @@ def timings(ops, ref, flush):
                                                ("long", (8, 4, 1, 256, 8), 4096),
                                                ("olmoe_serving", (2, 16, 16, 128, 8), 40),
                                                ("g7_hd128", (2, 56, 8, 128, 8), 1024),
-                                               ("g12_hd192", (2, 96, 8, 192, 8), 1024)]:
+                                               ("g12_hd192", (2, 96, 8, 192, 8), 1024),
+                                               ("deepseek_serving", (2, 56, 8, 128, 8), 40),
+                                               ("gemma3_12b_serving", (2, 16, 8, 256, 8), 40),
+                                               ("internvl2_decode", (2, 14, 2, 64, 16), 2064)]:
         lengths = [length] * B
         parts = num_partitions(-(-length // page), page)
         q, kp, vp, table, lens = paged_inputs(B, N, K, hd, page, lengths, torch.bfloat16,
@@ -484,7 +524,8 @@ def print_profile(prof, wall_us: float, what: str) -> None:
 
 def profiled(fn, what: str):
     """Run `fn` once under torch.profiler and print where the device time went.
-    Returns the device's busy time in us and {kernel name: (us, count)}."""
+    Returns the device's busy time in us, {kernel name: (us, count)} and the
+    wall time in us."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -493,7 +534,7 @@ def profiled(fn, what: str):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return print_profile(prof, wall_us, what)
+    return (*print_profile(prof, wall_us, what), wall_us)
 
 
 def profile_steps(eng, args, n_steps: int = 20) -> None:
@@ -580,6 +621,7 @@ def main_path(ops, ref, arch: str = "gemma3-1b"):
     check(all(len(r.generated) == args.max_new for r in eng.requests.values()),
           "a request did not generate all its tokens")
     check(eng.preemptions > 0, "no preemption: the hot pool was never under pressure")
+    check(stats["remote_hits"] > 0, "no page was promoted back from the REMOTE tier")
     check(peak_remote > 0 and remote_recs > 0, "no bytes reached the REMOTE tier")
     check(launches > 0, "the main path never launched the paged_attention kernel")
     check(launches == eng.decode_batches * cfg.num_layers,
@@ -668,9 +710,17 @@ FLASH_PATH = {"gemma3_global": ((2, 2048, 4, 1, 256), WINDOW_GLOBAL),
               "gemma3_sliding": ((2, 2048, 4, 1, 256), 512),
               "zamba2": ((2, 2048, 32, 32, 64), WINDOW_GLOBAL),
               "olmoe": ((2, 2048, 16, 16, 128), WINDOW_GLOBAL)}
-# Head dims past {32, 64, 128, 256} at their published configs' widths, on no
-# path yet: hubert-xlarge (16 heads of 80, non-causal) and nemotron-4-340b (96
-# query heads over 8 KV heads of 192, causal). (shape, window, causal)
+# Phase 13's prefill shapes, causal: deepseek-coder-33b (56 heads over 8 at
+# hd 128), gemma3-12b (16 over 8 at hd 256, global and sliding 1024) and
+# internvl2-1b (14 over 2 at hd 64).
+FLASH_ONE_CARD = {"deepseek": ((2, 2048, 56, 8, 128), WINDOW_GLOBAL),
+                  "gemma3_12b_global": ((2, 2048, 16, 8, 256), WINDOW_GLOBAL),
+                  "gemma3_12b_sliding": ((2, 2048, 16, 8, 256), 1024),
+                  "internvl2": ((2, 2048, 14, 2, 64), WINDOW_GLOBAL)}
+# Head dims past {32, 64, 128, 256} at their published configs' widths:
+# hubert-xlarge (16 heads of 80, non-causal; on phase 13's path) and
+# nemotron-4-340b (96 query heads over 8 KV heads of 192, causal; on no path,
+# it does not fit one card). (shape, window, causal)
 FLASH_WIDE = {"hubert_hd80": ((2, 2048, 16, 16, 80), WINDOW_GLOBAL, False),
               "nemotron_hd192": ((1, 2048, 96, 8, 192), WINDOW_GLOBAL, True)}
 SSD_PATH = (2, 2048, 64, 64, 64)     # zamba2-1.2b: B, T, H, P, N at chunk 32
@@ -712,7 +762,7 @@ def flash_vs_plain():
     # The path's shapes, each template instantiation it runs: fp32 at 2e-5, and
     # bf16 within one bf16 ulp of |plain|. Outputs there are ~0.01-0.02, so a
     # flat 2e-2 would not tell a dropped k tile from rounding.
-    for shape, window in FLASH_PATH.values():
+    for shape, window in (*FLASH_PATH.values(), *FLASH_ONE_CARD.values()):
         cases.append((shape, window, True, torch.float32, 2e-5, 0.0))
         cases.append((shape, window, True, torch.bfloat16, BF16_ATOL, BF16_RTOL))
     worst = 0.0
@@ -868,7 +918,8 @@ def prefill_timings(flush):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    shapes = {**{k: (*v, True) for k, v in FLASH_PATH.items()}, **FLASH_WIDE}
+    shapes = {**{k: (*v, True) for k, v in {**FLASH_PATH, **FLASH_ONE_CARD}.items()},
+              **FLASH_WIDE}
     for label, ((B, S, N, K, hd), window, causal) in shapes.items():
         q, k, v = flash_inputs(B, S, N, K, hd, torch.bfloat16, seed=200)
         scale = hd ** -0.5
@@ -951,8 +1002,10 @@ def decode_state_from_prefill(tf, params, cfg, caches, B, S, max_len):
 
 
 def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
-    """Prefill B=2 x 2048 tokens at full width, then 16 cached decode steps.
-    Returns the launch counts of the kernel run."""
+    """Prefill B=2 x 2048 tokens (or (B, S, D) embeddings for the vlm and
+    audio frontend stubs) at full width, then 16 cached decode steps (none
+    for an encoder). Returns the launch counts of the kernel run
+    (``launches``) and the build, memory and forward numbers."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.mamba2_ssd.ops import _ssd_chunked
@@ -969,21 +1022,31 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     print(f"device memory allocated before the build: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     cfg = get_config(arch)
     B, S, steps = 2, 2048, 16
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_build = torch.cuda.max_memory_allocated() / 2**30
     dims = {"hybrid": f" ssm H{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} "
                       f"P{cfg.ssm_head_dim} N{cfg.ssm_state}",
             "ssm": f" wkv H{cfg.d_model // cfg.rwkv_head_dim} hd{cfg.rwkv_head_dim} "
                    f"decay LoRA {cfg.rwkv_decay_lora}",
             "moe": f" experts {cfg.num_experts} top-{cfg.experts_per_token} expert "
                    f"F{cfg.moe_d_ff}"}.get(cfg.family, "")
-    print(f"built {cfg.name} in {time.perf_counter() - t0:.2f} s: L{cfg.num_layers} "
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"built {cfg.name} in {build_s:.2f} s: L{cfg.num_layers} "
           f"D{cfg.d_model} N{cfg.num_heads} K{cfg.num_kv_heads} hd{cfg.resolved_head_dim} "
-          f"F{cfg.d_ff} V{cfg.vocab_size}{dims}, "
-          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B parameters")
-    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), dtype=torch.int32, device="cuda",
-                         generator=torch.Generator(device="cuda").manual_seed(1))
+          f"F{cfg.d_ff} V{cfg.vocab_size}{dims}, causal {cfg.causal}, inputs "
+          f"{cfg.input_mode}, {n_params / 1e9:.3f} B parameters; peak device memory of the "
+          f"build {peak_build:.2f} GiB")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    if cfg.input_mode == "tokens":
+        toks = torch.randint(0, cfg.vocab_size, (B, S + steps), dtype=torch.int32,
+                             device="cuda", generator=gen)
+    else:   # the frontend stubs' (B, S, D) embeddings, in the model's dtype
+        toks = torch.randn((B, S + steps, cfg.d_model), generator=gen,
+                           device="cuda").to(params["final_norm"].dtype)
     prompt = toks[:, :S]
     opts = tf.ModelOptions(attn_impl="flash", ssd_impl="pallas", wkv_impl="pallas",
                            moe_impl="ep")
@@ -994,6 +1057,7 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     prefill = functools.partial(forward, params, cfg)
 
     zero_counts()
+    torch.cuda.reset_peak_memory_stats()
     fwd_ms = []
     for _ in range(n_forwards):
         ts = time.perf_counter()
@@ -1001,7 +1065,9 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
         torch.cuda.synchronize()
         fwd_ms.append((time.perf_counter() - ts) * 1e3)
     counts = read_counts()
-    print(f"{n_forwards} forwards: launches {counts}, forward ms {[round(t, 2) for t in fwd_ms]}")
+    peak_prefill = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{n_forwards} forwards: launches {counts}, forward ms {[round(t, 2) for t in fwd_ms]}, "
+          f"peak device memory {peak_prefill:.2f} GiB")
     for name, n in per_forward.items():
         check(counts[name] == n * n_forwards,
               f"{name} launches {counts[name]} != {n} per forward x {n_forwards}")
@@ -1010,23 +1076,38 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
     check(tuple(logits.shape) == (B, 1, cfg.padded_vocab), f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()), "non-finite prefill logits")
     median_fwd = statistics.median(fwd_ms[1:])
+    flops = tf.model_flops(cfg, B * S, "inference")
+    record = {"launches": counts, "parameters": n_params, "build_s": build_s,
+              "peak_build_gib": peak_build, "peak_prefill_gib": peak_prefill,
+              "median_forward_ms": median_fwd, "first_forward_ms": fwd_ms[0],
+              "model_tflop": flops / 1e12,
+              "prefill_mfu": flops / (median_fwd / 1e3) / BF16_FLOPS_PER_S}
     print(f"prefill B{B} x {S}: median forward {median_fwd:.2f} ms (first {fwd_ms[0]:.2f} ms), "
-          f"{B * S / median_fwd * 1e3:.0f} prompt tokens/s")
+          f"{B * S / median_fwd * 1e3:.0f} prompt tokens/s; model_flops {flops / 1e12:.2f} "
+          f"TFLOP a forward, prefill_mfu {record['prefill_mfu']:.4f} of 989 TFLOP/s (bf16 dense)")
 
-    state = decode_state_from_prefill(tf, params, cfg, caches, B, S, S + steps)
-    step_ms, finite = [], []
-    for t in range(S, S + steps):
-        ts = time.perf_counter()
-        step_logits, state = tf.decode_step(params, cfg, state, toks[:, t:t + 1], opts)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - ts) * 1e3)
-        finite.append(bool(torch.isfinite(step_logits[:, :cfg.vocab_size]).all()))
-    check(all(finite), "non-finite decode logits")
-    check(int(state["lengths"][0]) == S + steps, "decode did not advance the lengths")
-    print(f"decode {steps} steps x B{B} from the prefill caches: median step "
-          f"{statistics.median(step_ms):.2f} ms (first {step_ms[0]:.2f} ms), logits finite")
-    del state, step_logits
-    busy_us, by_name = profiled(prefill, f"one {arch} prefill forward")
+    decode_argmax = []
+    if cfg.causal:
+        state = decode_state_from_prefill(tf, params, cfg, caches, B, S, S + steps)
+        step_ms, finite = [], []
+        for t in range(S, S + steps):
+            ts = time.perf_counter()
+            step_logits, state = tf.decode_step(params, cfg, state, toks[:, t:t + 1], opts)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            finite.append(bool(torch.isfinite(step_logits[:, :cfg.vocab_size]).all()))
+            decode_argmax.append(step_logits[:, :cfg.vocab_size].argmax(-1))
+        check(all(finite), "non-finite decode logits")
+        check(int(state["lengths"][0]) == S + steps, "decode did not advance the lengths")
+        record["decode_median_ms"] = statistics.median(step_ms)
+        print(f"decode {steps} steps x B{B} from the prefill caches: median step "
+              f"{statistics.median(step_ms):.2f} ms (first {step_ms[0]:.2f} ms), logits finite")
+        del state, step_logits
+    else:
+        print("encoder (causal=False): no decode step, the reference's documented skip "
+              "(tests/test_arch_smoke.py:62)")
+    busy_us, by_name, wall_us = profiled(prefill, f"one {arch} prefill forward")
+    record["idle_share"] = 1 - busy_us / wall_us if busy_us else None
 
     # Each kernel is reached through a module attribute; the checks and the
     # plain prefills put other functions there and restore the kernels after.
@@ -1199,7 +1280,129 @@ def prefill_path(arch: str, per_forward: dict, n_forwards: int = 4):
               f"fp32 prefill logits, kernels vs plain: {logit_diff} > {RWKV_FP32_LOGIT_ATOL}")
         check(wkv_rel <= RWKV_FP32_STATE_RTOL,
               f"fp32 prefill WKV states, kernels vs plain: {wkv_rel} > {RWKV_FP32_STATE_RTOL}")
-    return counts
+    if cfg.input_mode == "embeddings" and cfg.causal:
+        del plain
+        record["paged_launches"] = paged_from_prefill(tf, params, cfg, caches, toks, S,
+                                                      decode_argmax)
+    return record
+
+
+def paged_exact(q, k_pages, v_pages, block_table, lengths, window, *, scale):
+    """Paged attention evaluated in fp64 (the plain version's arithmetic)."""
+    B, N, hd = q.shape
+    _, page, K, _ = k_pages.shape
+    T = block_table.shape[1] * page
+    idx = block_table.long()
+    k = k_pages[idx].reshape(B, T, K, hd).double().repeat_interleave(N // K, 2)
+    v = v_pages[idx].reshape(B, T, K, hd).double().repeat_interleave(N // K, 2)
+    scores = torch.einsum("bnh,btnh->bnt", q.double(), k) * scale
+    pos = torch.arange(T, device=q.device)[None, :]
+    mask = (pos < lengths[:, None]) & ((lengths - 1)[:, None] - pos < window)
+    probs = torch.softmax(scores.masked_fill(~mask[:, None, :], -1e300), dim=-1)
+    return torch.einsum("bnt,btnh->bnh", probs, v)
+
+
+def paged_from_prefill(tf, params, cfg, caches, inputs, S, decode_argmax, page=16):
+    """The cached decode of an embeddings model (the reference's engine takes
+    token prompts only) through ``paged_decode_step``: the prefill's K/V in
+    fp32 pools of `page`-token pages, then one step for each of `inputs`'
+    positions past S, on (B, 1, D) embeddings, with the kernel and with its
+    plain version, each from its own copy of the same pools. In the model's
+    bf16, every kernel call is held against its plain version on the same
+    inputs within one bf16 ulp (phase 9's flash tolerance), and the argmax
+    is printed beside ``decode_step``'s from the same caches. On an fp32
+    copy of the model, every kernel call is held against the same attention
+    evaluated in fp64: within phase 2's 2e-5 max(1, max |exact|), or within
+    twice the fp32 plain version's own distance from it where that is
+    larger. Without qk-norm, the random weights' fan-in rule (the head
+    count, as the reference's) puts scores in the hundreds, so a softmax is
+    near one-hot and an fp32 rounding of one score moves its output by
+    ~1e-3 of max |v|; the same rounding flips near ties, which 24 layers
+    carry into the logits, so the logits are printed, not bounded (phase 4
+    prints them too). Returns the kernel's launches in the bf16 run."""
+    import repro_torch.serving.paged_decode as pd_mod
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    B, steps = inputs.shape[0], inputs.shape[1] - S
+    L, K, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    maxp = -(-(S + steps) // page)
+    table = torch.arange(B * maxp, dtype=torch.int32, device="cuda").reshape(B, maxp)
+    pools = []
+    for cache in caches["kv"]:                       # (L, B, S, K, hd)
+        pool = torch.zeros((L, B * maxp, page, K, hd), device="cuda")
+        pool.view(L, B, maxp * page, K, hd)[:, :, :S] = cache.float()
+        pools.append(pool)
+    worst = {"bf16": 0.0, "fp32": 0.0, "fp32 kernel err": 0.0, "fp32 plain err": 0.0}
+
+    def bf16_checked(q, kp, vp, table_, lengths, window, *, scale):
+        out = pa_ops.paged_attention(q, kp, vp, table_, lengths, window, scale=scale)
+        ref = paged_attention_ref(q, kp, vp, table_, lengths, window, scale=scale).float()
+        tol = BF16_RTOL * ref.abs() + BF16_ATOL * max(1.0, ref.abs().max().item())
+        worst["bf16"] = max(worst["bf16"], ((out.float() - ref).abs() / tol).max().item())
+        return out
+
+    def fp32_checked(q, kp, vp, table_, lengths, window, *, scale):
+        out = pa_ops.paged_attention(q, kp, vp, table_, lengths, window, scale=scale)
+        exact = paged_exact(q, kp, vp, table_, lengths, window, scale=scale)
+        plain = paged_attention_ref(q, kp, vp, table_, lengths, window, scale=scale)
+        err_k = (out.double() - exact).abs().max().item()
+        err_p = (plain.double() - exact).abs().max().item()
+        tol = max(2e-5 * max(1.0, exact.abs().max().item()), 2 * err_p)
+        worst["fp32"] = max(worst["fp32"], err_k / tol)
+        worst["fp32 kernel err"] = max(worst["fp32 kernel err"], err_k)
+        worst["fp32 plain err"] = max(worst["fp32 plain err"], err_p)
+        return out
+
+    def run(params_, cfg_, x, attention):
+        k_pool, v_pool = (p.clone() for p in pools)
+        pd_mod.paged_attention = attention
+        try:
+            out = []
+            for t in range(S, S + steps):
+                lengths = torch.full((B,), t, dtype=torch.int32, device="cuda")
+                logits, _, _ = pd_mod.paged_decode_step(params_, cfg_, k_pool, v_pool, table,
+                                                        lengths, x[:, t:t + 1])
+                out.append(logits[:, :cfg.vocab_size])
+            torch.cuda.synchronize()
+        finally:
+            pd_mod.paged_attention = pa_ops.paged_attention
+        return out
+
+    def agree(a, b):
+        return sum(int((x.argmax(-1) == y).sum()) for x, y in zip(a, b, strict=True)) / (
+            B * steps)
+
+    def apart(kernel, plain):
+        diff = max((a - b).abs().max().item() for a, b in zip(kernel, plain, strict=True))
+        return (f"kernel vs plain max |logit diff| {diff:.4e} of max |logit| "
+                f"{max(p.abs().max().item() for p in plain):.4e}, argmax agreement "
+                f"{agree(kernel, [p.argmax(-1) for p in plain]):.3f}")
+
+    zero_counts()
+    kernel = run(params, cfg, inputs, bf16_checked)
+    launches = read_counts()["paged_attention"]
+    before = read_counts()
+    plain = run(params, cfg, inputs, paged_attention_ref)
+    check(read_counts() == before, "the plain paged decode launched a kernel")
+    check(launches == steps * L, f"paged launches {launches} != {steps} steps x {L} layers")
+    check(all(bool(torch.isfinite(x).all()) for x in kernel), "non-finite paged logits")
+    print(f"paged decode {steps} steps x B{B} on (B, 1, D) embeddings from the prefill's "
+          f"K/V (fp32 pools, page {page}), bf16: launches {launches}; {apart(kernel, plain)}; "
+          f"argmax agreement with decode_step from the same caches: kernel "
+          f"{agree(kernel, decode_argmax):.3f}, plain {agree(plain, decode_argmax):.3f}; "
+          f"every kernel call's largest |diff| / tol {worst['bf16']:.3f} (one bf16 ulp)")
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = _tree_map(lambda t: t.float(), params)
+    x32 = inputs.float()
+    kernel = run(params32, cfg32, x32, fp32_checked)
+    plain = run(params32, cfg32, x32, paged_attention_ref)
+    print(f"paged decode in fp32: {apart(kernel, plain)}; every kernel call against fp64: "
+          f"largest |diff| {worst['fp32 kernel err']:.3e} (the fp32 plain version's "
+          f"{worst['fp32 plain err']:.3e}), largest share of tol {worst['fp32']:.3f}")
+    check(worst["bf16"] <= 1.0, "paged_attention disagrees with its plain version in bf16")
+    check(worst["fp32"] <= 1.0, "paged_attention is further from fp64 than its tolerance")
+    return launches
 
 
 def moe_breakdown(tf, moe_mod, params, cfg, prefill, busy_us, by_name) -> None:
@@ -1240,8 +1443,8 @@ def moe_breakdown(tf, moe_mod, params, cfg, prefill, busy_us, by_name) -> None:
 
     products()
     passes()
-    prod_us, _ = profiled(products, f"{layers} x the grouped expert products, alone")
-    pass_us, _ = profiled(passes, f"{layers} x the routed MoE pass, alone")
+    prod_us, _, _ = profiled(products, f"{layers} x the grouped expert products, alone")
+    pass_us, _, _ = profiled(passes, f"{layers} x the routed MoE pass, alone")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     products()
@@ -1414,9 +1617,9 @@ def train_path() -> dict:
         state_bytes = sum(t.numel() * t.element_size() for t in state_leaves)
         med = statistics.median(secs[1:])
         split = _split_step(tf, adamw, tree, params, opt, device_batch(n_steps), cfg, opts, hp)
-        busy_us, _ = profiled(lambda: step(params, opt, device_batch(n_steps + 1)),
-                              f"one train step, optimizer state "
-                              f"{'in pinned host memory' if offload_state else 'on the card'}")
+        busy_us, _, _ = profiled(lambda: step(params, opt, device_batch(n_steps + 1)),
+                                 f"one train step, optimizer state "
+                                 f"{'in pinned host memory' if offload_state else 'on the card'}")
         torch.cuda.synchronize()
         where = "host" if offload_state else "device"
         print(f"state on the {where}: losses {[round(l, 5) for l in losses]}; steps "
@@ -1836,6 +2039,32 @@ def multi_device_path(training: dict, ckdir: str, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ every config one card holds
+# The published configs that fit one 80 GB card and that no phase above runs,
+# the largest first (deepseek-coder-33b's 62.1 GiB of bf16 weights leave the
+# least room), each with the flash launches a forward must make; the two
+# token models are also served through the tiered paged engine.
+ONE_CARD = (("deepseek-coder-33b", 62), ("gemma3-12b", 48), ("internvl2-1b", 24),
+            ("hubert-xlarge", 48))
+ONE_CARD_SERVED = ("deepseek-coder-33b", "gemma3-12b")
+
+
+def every_config_one_card_holds(ops, ref, smi: str) -> dict:
+    """Phase 13: each model of ONE_CARD built at full width with random bf16
+    weights, freed before the next: its prefill path (phase 9's checks; the
+    embeddings models from (B, S, D) inputs, internvl2-1b's decode also
+    through ``paged_decode_step``, hubert-xlarge's encoder without decode),
+    then the serving path for the token models. Prints a ``one_card: {...}``
+    JSON line with each model's numbers and the card's name and power limit."""
+    out = {}
+    for arch, flash_per_forward in ONE_CARD:
+        out[arch] = prefill_path(arch, {"flash_attention": flash_per_forward})
+        if arch in ONE_CARD_SERVED:
+            out[arch]["serving_launches"] = main_path(ops, ref, arch)
+    print("one_card: " + json.dumps({"card": smi, "models": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1856,33 +2085,38 @@ def main() -> int:
     worst_wkv = wkv6_vs_plain()
     prefill_rows = prefill_timings(flush)
     del flush
-    gemma = prefill_path("gemma3-1b", {"flash_attention": 26})
-    zamba = prefill_path("zamba2-1.2b", {"flash_attention": 6, "mamba2_ssd": 38})
-    rwkv = prefill_path("rwkv6-3b", {"wkv6": 32})
-    olmoe = prefill_path("olmoe-1b-7b", {"flash_attention": 16})
+    gemma = prefill_path("gemma3-1b", {"flash_attention": 26})["launches"]
+    zamba = prefill_path("zamba2-1.2b", {"flash_attention": 6, "mamba2_ssd": 38})["launches"]
+    rwkv = prefill_path("rwkv6-3b", {"wkv6": 32})["launches"]
+    olmoe = prefill_path("olmoe-1b-7b", {"flash_attention": 16})["launches"]
     olmoe_launches = main_path(ops, ref, "olmoe-1b-7b")
     training, ckdir = train_path()
     multi_device_path(training, ckdir, smi)
+    one_card = every_config_one_card_holds(ops, ref, smi)
+    served = {arch: rec["serving_launches"] for arch, rec in one_card.items()
+              if "serving_launches" in rec}
+    paged_by_model = {"gemma3-1b": launches, "olmoe-1b-7b": olmoe_launches, **served,
+                      "internvl2-1b": one_card["internvl2-1b"]["paged_launches"]}
+    flash_by_model = {"gemma3-1b": gemma["flash_attention"],
+                      "zamba2-1.2b": zamba["flash_attention"],
+                      "olmoe-1b-7b": olmoe["flash_attention"],
+                      **{arch: rec["launches"]["flash_attention"]
+                         for arch, rec in one_card.items()}}
     phase("results")
     print(json.dumps({"kernels": [
         kernel_record("paged_attention",
                       "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
                       "src/repro/kernels/paged_attention/paged_attention.py:93",
-                      launches + olmoe_launches, worst, rows["serving"],
-                      launches_by_model={"gemma3-1b": launches, "olmoe-1b-7b": olmoe_launches},
-                      two_partitions=rows["two_partitions"], long_context=rows["long"],
-                      olmoe_serving=rows["olmoe_serving"], g7_hd128=rows["g7_hd128"],
-                      g12_hd192=rows["g12_hd192"]),
+                      sum(paged_by_model.values()), worst, rows["serving"],
+                      launches_by_model=paged_by_model,
+                      shapes={k: v for k, v in rows.items() if k != "serving"}),
         kernel_record("flash_attention",
                       "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention/flash_attention.py:107",
-                      gemma["flash_attention"] + zamba["flash_attention"]
-                      + olmoe["flash_attention"], worst_flash,
-                      prefill_rows["gemma3_global"],
-                      launches_by_model={"gemma3-1b": gemma["flash_attention"],
-                                         "zamba2-1.2b": zamba["flash_attention"],
-                                         "olmoe-1b-7b": olmoe["flash_attention"]},
-                      shapes={k: prefill_rows[k] for k in (*FLASH_PATH, *FLASH_WIDE)}),
+                      sum(flash_by_model.values()), worst_flash,
+                      prefill_rows["gemma3_global"], launches_by_model=flash_by_model,
+                      shapes={k: v for k, v in prefill_rows.items()
+                              if k not in ("ssd_zamba2", "wkv6_rwkv6")}),
         kernel_record("mamba2_ssd",
                       "src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
                       "src/repro/kernels/mamba2_ssd/mamba2_ssd.py:82",

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.tree import leaves as tree_leaves
+from repro_torch.tree import leaves as tree_leaves, tree_map
 
 HOST = "pinned_host"
 DEVICE = "device"
@@ -44,6 +44,27 @@ def resolve_memory_kind(kind: str, device="cuda") -> str:
     if kind == HOST and not backend_supports_memory_spaces(device):
         return UNPINNED_HOST
     return kind
+
+
+def with_memory_kind(sharding, kind: str):
+    """Clone a ``NamedSharding`` onto the given memory tier (layout-preserving),
+    as the memory kind resolves on its mesh's device type."""
+    device = getattr(sharding.mesh, "device_type", "cuda")
+    return dataclasses.replace(sharding, memory_kind=resolve_memory_kind(kind, device))
+
+
+def _tier_tree(shardings: Any, kind: str) -> Any:
+    # None is an empty subtree, as ``jax.tree.map`` sees it
+    return tree_map(lambda s: None if s is None else with_memory_kind(s, kind), shardings)
+
+
+def host_sharding_tree(shardings: Any) -> Any:
+    """Map a tree of shardings to the remote (host) tier."""
+    return _tier_tree(shardings, HOST)
+
+
+def device_sharding_tree(shardings: Any) -> Any:
+    return _tier_tree(shardings, DEVICE)
 
 
 def to_tier(t: torch.Tensor, kind: str, device="cuda") -> torch.Tensor:

@@ -6,7 +6,8 @@ launch; nothing is built or loaded at import time. bf16 inputs run on the
 tensor cores, fp32 inputs on the CUDA cores: a choice by dtype, not a fallback. ``flash_attention`` checks
 its inputs, allocates the output with ``torch.empty``, and launches on the
 current CUDA stream without synchronising. ``launches`` counts the launches
-this process made.
+this process made. ``flash_attention_bnh`` is the reference's entry point
+over flattened batch x heads, on the same kernel.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels._nvcc import F32, I32, PTR, Kernel
+from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref  # noqa: F401
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # q, k, v, out; B, S, T, N, K, hd, window, causal; scale; is_bf16; stream
@@ -25,6 +27,11 @@ KERNEL = Kernel(SOURCE, "flash_attention_fwd", [*[PTR] * 4, *[I32] * 8, F32, I32
 
 HEAD_DIMS = (32, 64, 80, 128, 192, 256)
 BLOCK_Q = 64
+# The reference's default Pallas tiles. The CUDA kernel picks its own (BLOCK_Q
+# query rows, a key tile by head dim and dtype), so `flash_attention_bnh`
+# takes these arguments and checks them, and they change nothing.
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
 
 launches = 0
 
@@ -66,3 +73,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window
                       int(q.dtype == torch.bfloat16), stream)
     launches += 1
     return out
+
+
+def flash_attention_bnh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, *,
+                        causal: bool = True, scale: float = 1.0,
+                        block_q: int = DEFAULT_BLOCK_Q,
+                        block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """The reference's flattened entry point: q (BN, S, hd); k, v (BN, T, hd)
+    with the kv heads already broadcast to the query heads; `window` an int
+    or a one-element integer tensor. Returns (BN, S, hd) in q's dtype. CUDA
+    tensors run the kernel as BN sequences of one head; CPU tensors take the
+    plain version."""
+    _check(operator.index(block_q) >= 1 and operator.index(block_k) >= 1,
+           f"block_q {block_q}, block_k {block_k} must be >= 1")
+    if isinstance(window, torch.Tensor):
+        _check(window.numel() == 1, f"window of shape {tuple(window.shape)}")
+        window = window.reshape(())
+    window = operator.index(window)
+    _check(q.dim() == 3 and k.dim() == 3 and k.shape == v.shape and k.shape[0] == q.shape[0],
+           f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    q4, k4, v4 = (t[:, :, None] for t in (q, k, v))
+    if q.device.type == "cpu":
+        out = attention_ref(q4, k4, v4, window, causal=causal, scale=scale)
+    else:
+        out = flash_attention(q4.contiguous(), k4.contiguous(), v4.contiguous(),
+                              window=window, scale=scale, causal=causal)
+    return out[:, :, 0]

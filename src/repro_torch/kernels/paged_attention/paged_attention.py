@@ -34,6 +34,7 @@ HEAD_DIMS = (32, 64, 80, 128, 192, 256)
 PAGE_SIZES = (8, 16, 32)
 GROUPS = tuple(range(1, 17))     # query heads per kv head
 PARTITION_TOKENS = 64     # tokens a block takes: kPartition in the source
+NEG_INF = -1.0e30         # a masked score, in the kernel and its plain version
 
 launches = 0
 

@@ -9,7 +9,9 @@ Implementations of ``full_attention``:
   * ``xla_chunked`` — the same over query blocks, so scores never reach (S x S);
   * ``flash``       — the flash-attention kernel (``kernels/flash_attention``):
                       the CUDA kernel for CUDA tensors, its plain version for
-                      CPU tensors. Causal layers only, as in the reference.
+                      CPU tensors. Causal layers, and the encoder's
+                      all-to-all layers, which the reference sends to ``xla``
+                      (ROADMAP C.6).
 
 Decode writes the new token's K/V into the caller's cache in
 place, where the reference's ``.at[...].set`` returns a new cache; the
@@ -230,8 +232,11 @@ def full_attention(
     q, k, v = _project_qkv(p, x, positions, theta, qk_norm)
     scale = q.shape[-1] ** -0.5
 
-    if attn_impl == "flash" and causal:
-        out = flash_attention(q, k, v, window=window, scale=scale)
+    if attn_impl == "flash":
+        # An encoder layer attends all-to-all whatever its window, as the
+        # masked path below computes it; the reference sends it there.
+        out = flash_attention(q, k, v, window=window if causal else max(window, S + 1),
+                              scale=scale, causal=causal)
     elif attn_impl == "xla_chunked":
         out = _chunked_attention(q, k, v, window=window, causal=causal, scale=scale)
     else:
@@ -357,3 +362,13 @@ def decode_attention_ring(
                                   valid[:, None, :], scale)
     out = _out_projection(out, p["wo"])
     return constrain(out, ("batch", "seq", "embed")), k_ring, v_ring
+
+
+def attention_flops(S: int, B: int, D: int, N: int, K: int, hd: int,
+                    causal: bool, window: int) -> int:
+    """Model FLOPs for one attention layer (projections + scores/values)."""
+    proj = 2 * B * S * D * (N + 2 * K + N) * hd
+    eff_ctx = min(window, S) if window else S
+    pair = B * S * eff_ctx * (0.5 if causal and eff_ctx == S else 1.0)
+    scores = 2 * pair * N * hd * 2
+    return int(proj + scores)

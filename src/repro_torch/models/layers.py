@@ -23,17 +23,32 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 # ----------------------------------------------------------------------------- init
+# A layer-stacked leaf of more elements than this is drawn one slice of its
+# leading axis at a time: a whole draw needs fp32 scratch of the leaf's size,
+# and deepseek-coder-33b's (62, 7168, 19200) MLP stacks would take 34 GB
+# each. Smaller leaves (every reduced config, gemma3-1b at full width) are
+# drawn whole, so their values are the whole draw's.
+WHOLE_DRAW_LIMIT = 1 << 28       # elements: 1 GiB of fp32 scratch
+
+
 def trunc_normal(gen: torch.Generator, shape, scale: float, dtype=torch.float32,
                  device="cuda") -> torch.Tensor:
-    """Fan-in-scaled truncated normal (std = scale / sqrt(fan_in)), drawn in fp32.
-    On the meta device (shapes only) nothing is drawn."""
-    if torch.device(device).type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
+    """Fan-in-scaled truncated normal (std = scale / sqrt(fan_in)), drawn in
+    fp32 into a scratch (the whole leaf, or one layer slice of a stack past
+    WHOLE_DRAW_LIMIT) and rounded into the leaf once. On the meta device
+    (shapes only) nothing is drawn."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta or out.numel() == 0:
+        return out
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale / math.sqrt(fan_in)
-    t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t.mul_(std).to(dtype)
+    whole = len(shape) < 3 or out.numel() <= WHOLE_DRAW_LIMIT
+    parts = (out,) if whole else out.unbind(0)
+    scratch = torch.empty(parts[0].shape, dtype=torch.float32, device=device)
+    for part in parts:
+        torch.nn.init.trunc_normal_(scratch, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        part.copy_(scratch.mul_(std))
+    return out
 
 
 def zeros(shape, dtype=torch.float32, device="cuda") -> torch.Tensor:
@@ -107,3 +122,8 @@ def mlp(p: Dict[str, torch.Tensor], x: torch.Tensor, activation: str) -> torch.T
         h = _act(activation, x @ p["w_up"])
     h = constrain(h, ("batch", None, "ff"))
     return h @ p["w_down"]
+
+
+def mlp_flops(D: int, F: int, activation: str, tokens: int) -> int:
+    mats = 3 if activation in ("swiglu", "gelu_glu") else 2
+    return 2 * mats * D * F * tokens

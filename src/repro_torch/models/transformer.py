@@ -650,3 +650,10 @@ def decode_state_axes(cfg: ArchConfig, sliding_ring: bool = False) -> Dict[str, 
             ax["dense_kv"] = (kv_ax, kv_ax)
         ax["kv"] = (kv_ax, kv_ax)
     return ax
+
+
+# ------------------------------------------------------------------------- flops
+def model_flops(cfg: ArchConfig, tokens: int, mode: str = "train") -> float:
+    """MODEL_FLOPS: 6*N*D train / 2*N*D inference (N = active params)."""
+    n = cfg.active_param_count()
+    return (6.0 if mode == "train" else 2.0) * n * tokens

@@ -296,3 +296,77 @@ def test_cuda_kernel_matches_plain_at_head_dims_80_and_192(case, dtype):
     out = flash_attention(q, k, v, window=window, scale=scale, causal=causal)
     ref = attention_ref(q, k, v, window, scale=scale, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), **PATH_TOL[dtype])
+
+
+# ``flash_attention_bnh``, the reference's entry point over flattened
+# batch x heads with K/V already broadcast: (BN, S, hd, T), window, causal.
+BNH = [((6, 160, 32, 160), 1 << 30, True), ((6, 160, 32, 160), 48, True),
+       ((4, 130, 64, 130), 1 << 30, False), ((3, 100, 80, 140), 1 << 30, False)]
+BNH_IDS = ["global", "window48", "noncausal", "hd80-T140-noncausal"]
+
+
+def bnh_inputs(BN, S, hd, T, seed):
+    q, k, v = make_inputs(BN, S, 1, 1, hd, seed, T=T)
+    return q[:, :, 0], k[:, :, 0], v[:, :, 0]
+
+
+@pytest.mark.parametrize("case", BNH, ids=BNH_IDS)
+def test_bnh_matches_reference_kernel(reference, case):
+    """CPU tensors take the plain version, held at 2e-5 (fp32) against the
+    reference's ``flash_attention_bnh`` with its Pallas kernel in interpret
+    mode; the window may come as an int or a one-element tensor."""
+    jnp = reference[0]
+    r_fa = pytest.importorskip("repro.kernels.flash_attention.flash_attention")
+    (BN, S, hd, T), window, causal = case
+    q, k, v = bnh_inputs(BN, S, hd, T, seed=12)
+    scale = hd ** -0.5
+    ref = r_fa.flash_attention_bnh(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.int32(window), causal=causal, scale=scale,
+                                   interpret=True)
+    before = kernel_mod.launches
+    for w in (window, torch.tensor([window], dtype=torch.int32)):
+        out = kernel_mod.flash_attention_bnh(_torch(q), _torch(k), _torch(v), w,
+                                             causal=causal, scale=scale)
+        assert out.shape == (BN, S, hd)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
+    assert kernel_mod.launches == before
+
+
+def test_bnh_names_and_arguments_match_the_reference(reference):
+    r_fa = pytest.importorskip("repro.kernels.flash_attention.flash_attention")
+    r_pa = pytest.importorskip("repro.kernels.paged_attention.paged_attention")
+    from repro_torch.kernels.paged_attention import paged_attention as t_pa
+
+    assert (kernel_mod.DEFAULT_BLOCK_Q, kernel_mod.DEFAULT_BLOCK_K, kernel_mod.NEG_INF) == \
+        (r_fa.DEFAULT_BLOCK_Q, r_fa.DEFAULT_BLOCK_K, r_fa.NEG_INF)
+    assert t_pa.NEG_INF == r_pa.NEG_INF
+    q, k, v = (_torch(a) for a in bnh_inputs(2, 40, 32, 40, seed=13))
+    # The CUDA kernel picks its own tiles: the block arguments change nothing.
+    base = kernel_mod.flash_attention_bnh(q, k, v, 16, scale=0.2)
+    assert torch.equal(base, kernel_mod.flash_attention_bnh(q, k, v, 16, scale=0.2,
+                                                            block_q=32, block_k=256))
+    with pytest.raises(ValueError, match="block_q"):
+        kernel_mod.flash_attention_bnh(q, k, v, 16, scale=0.2, block_q=0)
+    with pytest.raises(ValueError, match="window"):
+        kernel_mod.flash_attention_bnh(q, k, v, torch.tensor([16, 16]), scale=0.2)
+    with pytest.raises(ValueError, match="shapes"):
+        kernel_mod.flash_attention_bnh(q[None], k, v, 16, scale=0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BNH, ids=BNH_IDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bnh_matches_plain(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (BN, S, hd, T), window, causal = case
+    q, k, v = (_torch(a).cuda().to(getattr(torch, dtype))
+               for a in bnh_inputs(BN, S, hd, T, seed=14))
+    scale = hd ** -0.5
+    before = kernel_mod.launches
+    out = kernel_mod.flash_attention_bnh(q, k, v, window, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert kernel_mod.launches == before + 1
+    ref = attention_ref(q[:, :, None], k[:, :, None], v[:, :, None], window, scale=scale,
+                        causal=causal)[:, :, 0]
+    torch.testing.assert_close(out.float(), ref.float(), **PATH_TOL[dtype])

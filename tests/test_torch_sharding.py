@@ -236,3 +236,77 @@ def test_per_device_bytes_equal_the_reference_specs(placed_bytes, arch):
     orules = r_sp.opt_rules_for(rules)
     want = 4 + sum(_reckoned(pax, o[k], orules) for k in ("m", "v", "master"))
     assert got["opt"] == want
+
+
+# ------------------------------------------------------------------ memory tiers of sharding trees
+def _sharding_trees(device_type):
+    """The same nested tree of shardings in both packages: dicts, a list, a
+    tuple and an empty (None) subtree."""
+    from jax.sharding import NamedSharding as RNamedSharding
+    from jax.sharding import PartitionSpec as RP
+
+    from repro_torch.distributed.sharding import NamedSharding, P
+
+    specs = {"embed": ("data", None), "stack": {"wq": [(None, "model"), ()],
+                                                "norm": ((),)}, "none": None}
+    mesh_r = jax.make_mesh((1, 1), ("data", "model"))
+    mesh_t = FakeMesh(data=1, model=1)
+    mesh_t.device_type = device_type
+
+    def build(tree, leaf):
+        if isinstance(tree, dict):
+            return {k: build(v, leaf) for k, v in tree.items()}
+        if isinstance(tree, list) or (isinstance(tree, tuple) and tree and
+                                      isinstance(tree[0], tuple)):
+            return type(tree)(build(v, leaf) for v in tree)
+        return None if tree is None else leaf(tree)
+
+    ref = build(specs, lambda s: RNamedSharding(mesh_r, RP(*s)))
+    port = build(specs, lambda s: NamedSharding(mesh_t, P(*s)))
+    return ref, port
+
+
+def _kinds_and_specs(ref, port):
+    ref_leaves = jax.tree.leaves(ref)
+    port_leaves = [x for x in leaves(port) if x is not None]
+    assert len(ref_leaves) == len(port_leaves) == 4
+    for r, t in zip(ref_leaves, port_leaves, strict=True):
+        assert tuple(r.spec) == tuple(t.spec)
+    return ([r.memory_kind for r in ref_leaves], [t.memory_kind for t in port_leaves])
+
+
+@pytest.mark.parametrize("tier", ["host", "device"])
+def test_sharding_tree_tiers_equal_the_reference(monkeypatch, tier):
+    """On a backend with memory spaces (both packages' answer patched so on
+    the CPU), every leaf's memory kind `==` the reference's; the layout and
+    the empty subtree are kept."""
+    import repro.core.offload as r_off
+    from repro_torch.core import offload as t_off
+
+    monkeypatch.setattr(r_off, "backend_supports_memory_spaces", lambda: True)
+    monkeypatch.setattr(t_off, "backend_supports_memory_spaces", lambda device="cuda": True)
+    ref, port = _sharding_trees("cuda")
+    fn = f"{tier}_sharding_tree"
+    new_ref, new_port = getattr(r_off, fn)(ref), getattr(t_off, fn)(port)
+    assert new_port["none"] is None and new_ref["none"] is None
+    kinds_r, kinds_t = _kinds_and_specs(new_ref, new_port)
+    assert kinds_t == kinds_r == [{"host": "pinned_host", "device": "device"}[tier]] * 4
+    one = t_off.with_memory_kind(port["embed"], t_off.HOST)
+    assert one == dataclasses.replace(port["embed"], memory_kind="pinned_host")
+    assert port["embed"].memory_kind is None          # the input is not changed
+
+
+def test_sharding_tree_tiers_on_the_cpu():
+    """As the CPU backends answer: the device tier `==` the reference's; the
+    host tier is the reference's "device" (XLA's CPU backend places nothing
+    inside a computation) and the port's "unpinned_host" (ROADMAP C.6)."""
+    import repro.core.offload as r_off
+    from repro_torch.core import offload as t_off
+
+    ref, port = _sharding_trees("cpu")
+    kinds_r, kinds_t = _kinds_and_specs(r_off.device_sharding_tree(ref),
+                                        t_off.device_sharding_tree(port))
+    assert kinds_t == kinds_r == ["device"] * 4
+    kinds_r, kinds_t = _kinds_and_specs(r_off.host_sharding_tree(ref),
+                                        t_off.host_sharding_tree(port))
+    assert kinds_r == ["device"] * 4 and kinds_t == ["unpinned_host"] * 4
