@@ -3,9 +3,10 @@
 Phases, each of which raises (and so exits non-zero) on failure, each
 printed with the wall time of the phase before it:
   1. card: name and power limit, torch/CUDA versions; the four CUDA kernels
-     built together, one nvcc per source, each in its own thread, with
-     ptxas's registers and spills for every instantiation, and 0 spill bytes
-     checked for the scans' instantiations on the prefill paths; then each
+     built together, one nvcc per source, each in its own thread and timed,
+     with ptxas's registers, spills and warnings for every instantiation, and
+     0 spill bytes checked for the scans' instantiations on the prefill paths
+     and for flash attention's six bf16 (wgmma) instantiations; then each
      kernel's wrapper called under grad with an input that requires grad,
      which must raise before it launches;
   2. the paged-attention kernel against its plain PyTorch version on the card,
@@ -28,11 +29,12 @@ printed with the wall time of the phase before it:
      more steps of the same request mix; then decode steps with the kernel and
      with the plain version from the same pools;
   5. the flash-attention kernel against its plain version: the reference's
-     sweep (fp32 and bf16, causal and not), the bf16 tensor-core kernel's
-     edges (every head dim, ragged S, windows about a tile, non-causal), hd
-     80 (non-causal) and 192 (causal and sliding), and the prefill shapes of
-     gemma3-1b, zamba2-1.2b, olmoe-1b-7b and phase 13's causal models, in
-     fp32 and in bf16;
+     sweep (fp32 and bf16, causal and not), the bf16 wgmma kernel's edges
+     (every head dim, ragged S against its 128-row blocks and 64-row
+     warpgroups, windows about them and its key tiles, non-causal with T
+     ragged), hd 80 (non-causal) and 192 (causal and sliding), and the
+     prefill shapes of gemma3-1b, zamba2-1.2b, olmoe-1b-7b and phase 13's
+     causal models, in fp32 and in bf16;
   6. the Mamba2 SSD kernel against its plain versions: the reference's sweep
      and zamba2-1.2b's shape;
   7. the WKV6 kernel against its plain versions: the reference's sweep and
@@ -41,7 +43,9 @@ printed with the wall time of the phase before it:
      attention, SDPA as a yardstick, beside the bound at the path shapes
      (phase 13's too) and at hd 80 and 192 (for the scans both the
      operations and the bytes bound), the flops a second flash attention
-     reached, and a profile of
+     reached (attention flops, and tensor-core flops with the P split
+     counted), SDPA's largest error over the one-ulp bound against the plain
+     version (printed, not checked), and a profile of
      flushed calls of each scan that gives each of its passes' own device
      time;
   9. the prefill path at full width for gemma3-1b, zamba2-1.2b, rwkv6-3b and
@@ -273,21 +277,31 @@ def card():
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     sources = [mod.SOURCE for mod in kernel_modules().values()]
+
+    def timed_build(source):
+        start = time.perf_counter()
+        path, log = _nvcc.build(source)
+        return path, log, time.perf_counter() - start
+
     with ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(_nvcc.build, sources))
-    print(f"built {', '.join(path.name for path, _ in built)} in "
+        timed = list(pool.map(timed_build, sources))
+    built = [(path, log) for path, log, _ in timed]
+    print(f"built {', '.join(f'{path.name} ({sec:.2f} s)' for path, _, sec in timed)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for path, log in built:
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
                 print(f"  ptxas {path.stem}: {line.strip()}")
     check_path_spills({src.stem: log for src, (_, log) in zip(sources, built, strict=True)})
     return smi
 
 
 # The instantiations the prefill paths launch (bf16, zamba2's chunk 32 and
-# P = N = 64; rwkv6-3b's chunk 16 and K = V = 64), by their mangled names.
+# P = N = 64; rwkv6-3b's chunk 16 and K = V = 64; flash attention's wgmma
+# kernel at each head dim), by their mangled names.
 PATH_ENTRIES = {
+    "flash_attention": tuple(f"flash_attention_wgmma_kernelILi{hd}E"
+                             for hd in (32, 64, 80, 128, 192, 256)),
     "mamba2_ssd": ("ssd_chunk_kernelILi32E13__nv_bfloat16", "ssd_state_kernel",
                    "ssd_output_kernelILi32E13__nv_bfloat16"),
     "rwkv6_scan": ("wkv6_step_kernelILi64E13__nv_bfloat16", "wkv6_state_kernel",
@@ -664,11 +678,13 @@ def main_path(ops, ref, arch: str = "gemma3-1b"):
 
 
 # ------------------------------------------------------------------ prefill kernels
-def flash_inputs(B, S, N, K, hd, dtype, seed):
+def flash_inputs(B, S, N, K, hd, dtype, seed, T=None):
+    """q (B, S, N, hd); k, v (B, T, K, hd), T = S unless given."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    T = T or S
     q = (torch.randn((B, S, N, hd), generator=g, device="cuda") * 0.5).to(dtype)
-    k = (torch.randn((B, S, K, hd), generator=g, device="cuda") * 0.5).to(dtype)
-    v = (torch.randn((B, S, K, hd), generator=g, device="cuda") * 0.5).to(dtype)
+    k = (torch.randn((B, T, K, hd), generator=g, device="cuda") * 0.5).to(dtype)
+    v = (torch.randn((B, T, K, hd), generator=g, device="cuda") * 0.5).to(dtype)
     return q, k, v
 
 
@@ -741,7 +757,7 @@ def flash_vs_plain():
             cases.append((shape, window, True, torch.float32, 2e-5, 0.0))
             cases.append((shape, window, True, torch.bfloat16, 2e-2, 0.0))
     cases.append(((2, 128, 4, 4, 64), WINDOW_GLOBAL, False, torch.float32, 2e-5, 0.0))
-    # hd 80 (non-causal, hubert's case; rows padded to 128 in shared memory)
+    # hd 80 (non-causal, hubert's case; rows of five 16-column TMA boxes)
     # and hd 192 (causal and sliding): fp32 at 2e-5, bf16 within one bf16 ulp.
     for shape, window, causal in (((2, 1000, 16, 16, 80), WINDOW_GLOBAL, False),
                                   ((1, 1000, 4, 2, 80), 100, True),
@@ -749,8 +765,8 @@ def flash_vs_plain():
                                   ((1, 1000, 12, 1, 192), 100, True)):
         cases.append((shape, window, causal, torch.float32, 2e-5, 0.0))
         cases.append((shape, window, causal, torch.bfloat16, BF16_ATOL, BF16_RTOL))
-    # The bf16 tensor-core kernel's edges within one bf16 ulp: every head dim,
-    # S not a multiple of its tiles, windows about a 64-key tile, non-causal.
+    # The bf16 kernel's edges within one bf16 ulp: every head dim, S not a
+    # multiple of its tiles, windows about a 64-key tile, non-causal.
     for hd in (32, 64, 128, 256):
         for window in (1, 63, 64, 65):
             cases.append(((1, 1000, 4, 2, hd), window, True, torch.bfloat16, BF16_ATOL,
@@ -765,10 +781,25 @@ def flash_vs_plain():
     for shape, window in (*FLASH_PATH.values(), *FLASH_ONE_CARD.values()):
         cases.append((shape, window, True, torch.float32, 2e-5, 0.0))
         cases.append((shape, window, True, torch.bfloat16, BF16_ATOL, BF16_RTOL))
+    # The wgmma kernel's own tiles within one bf16 ulp: windows about its
+    # 128-row blocks and its key tiles (128 keys; 96 at hd 128, 48 at hd 256);
+    # rows against the block and its two 64-row warpgroups (S 64: the second
+    # has no row; S 65: one) at every head dim; non-causal with T ragged
+    # against the key tile (flash_attention's k and v take their own T).
+    for hd in (32, 64, 128, 256):
+        for window in (127, 128, 129, *{128: (95, 96, 97), 256: (47, 48, 49)}.get(hd, ())):
+            cases.append(((1, 1000, 4, 2, hd), window, True, torch.bfloat16, BF16_ATOL,
+                          BF16_RTOL))
+    for hd in (32, 64, 80, 128, 192, 256):
+        for S in (1, 64, 65, 129):
+            cases.append(((2, S, 4, 2, hd), WINDOW_GLOBAL, True, torch.bfloat16, BF16_ATOL,
+                          BF16_RTOL))
+        cases.append(((2, 129, 4, 4, hd, 65), WINDOW_GLOBAL, False, torch.bfloat16,
+                      BF16_ATOL, BF16_RTOL))
     worst = 0.0
     for i, (shape, window, causal, dtype, atol, rtol) in enumerate(cases):
-        q, k, v = flash_inputs(*shape, dtype, seed=i)
-        scale = shape[-1] ** -0.5
+        q, k, v = flash_inputs(*shape[:5], dtype, seed=i, T=shape[5] if len(shape) > 5 else None)
+        scale = shape[4] ** -0.5
         out = flash_attention(q, k, v, window=window, scale=scale, causal=causal)
         torch.cuda.synchronize()
         expect = attention_ref(q, k, v, window, scale=scale, causal=causal).float()
@@ -776,7 +807,9 @@ def flash_vs_plain():
         err = diff.max().item()
         within = bool((diff <= atol + rtol * expect.abs()).all())
         tol = f"{atol:g}" + (f" + {rtol:g} |plain|" if rtol else "")
-        print("  B{} S{} N{} K{} hd{}".format(*shape) + f" window {window} causal {causal} "
+        print("  B{} S{} N{} K{} hd{}".format(*shape) + (f" T{shape[5]}" if len(shape) > 5
+                                                        else "") +
+              f" window {window} causal {causal} "
               f"{str(dtype).removeprefix('torch.')}: max abs err {err:.3e}, max |plain| "
               f"{expect.abs().max().item():.3e} (tol {tol})")
         check(within, f"flash_attention disagrees with its plain version beyond {tol}")
@@ -937,15 +970,29 @@ def prefill_timings(flush):
             mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
             lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, scale=scale), flush)
         bound, bound_by = flash_bound_ms(B, S, N, K, hd, window, 2, BF16_FLOPS_PER_S, causal)
-        rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                       "bound_by": bound_by}
+        # Each output's distance from the plain version over the one-ulp bound
+        # (1 is the bound): the kernel's, and SDPA's, which rounds P once.
+        expect = attention_ref(q, k, v, window, scale=scale, causal=causal).float()
+        bound_of = BF16_ATOL + BF16_RTOL * expect.abs()
+        share = ((flash_attention(q, k, v, window=window, scale=scale, causal=causal).float()
+                  - expect).abs() / bound_of).max().item()
+        sd = (sdpa(qt, kt, vt, is_causal=causal, scale=scale) if window >= S
+              else sdpa(qt, kt, vt, attn_mask=mask, scale=scale))
+        sdpa_share = ((sd.transpose(1, 2).float() - expect).abs() / bound_of).max().item()
         flops = flash_flops(B, S, N, hd, window, causal)
+        tc_flops = flops * 3 // 2   # Q K^T 2 hd a pair, P V 2 hd twice (P_hi and P_lo)
+        rows[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                       "bound_by": bound_by, "tflops": flops / ms / 1e9,
+                       "tc_tflops": tc_flops / ms / 1e9, "sdpa_tflops": flops / lib / 1e9,
+                       "share_of_ulp_bound": share, "sdpa_share_of_ulp_bound": sdpa_share}
         print(f"  flash {label}: B{B} S{S} N{N} K{K} hd{hd} window {window} "
               f"{'causal' if causal else 'non-causal'} bf16: "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-              f"{bound_by} bound {bound:.4f} ms; kernel {flops / ms / 1e9:.1f} TFLOP/s, "
-              f"sdpa {flops / lib / 1e9:.1f} TFLOP/s ({flops / 1e9:.2f} GFLOP)")
-        del q, k, v, qt, kt, vt
+              f"{bound_by} bound {bound:.4f} ms; kernel {flops / ms / 1e9:.1f} TFLOP/s of "
+              f"attention, {tc_flops / ms / 1e9:.1f} of tensor-core work with the P split, "
+              f"sdpa {flops / lib / 1e9:.1f} TFLOP/s ({flops / 1e9:.2f} GFLOP); over the "
+              f"one-ulp bound against plain: kernel {share:.3f}, sdpa {sdpa_share:.3f}")
+        del q, k, v, qt, kt, vt, expect, bound_of, sd
 
     def flushed(call):
         def run():

@@ -2,12 +2,17 @@
 
 The kernel (``csrc/flash_attention.cu``) is plain CUDA C++ for ``sm_90a``,
 built by ``kernels/_nvcc.py`` into the git-ignored ``build/`` at its first
-launch; nothing is built or loaded at import time. bf16 inputs run on the
-tensor cores, fp32 inputs on the CUDA cores: a choice by dtype, not a fallback. ``flash_attention`` checks
-its inputs, allocates the output with ``torch.empty``, and launches on the
-current CUDA stream without synchronising. ``launches`` counts the launches
-this process made. ``flash_attention_bnh`` is the reference's entry point
-over flattened batch x heads, on the same kernel.
+launch; nothing is built or loaded at import time. bf16 inputs run on
+Hopper's own units: TMA loads into a ring of shared-memory stages that
+complete on mbarriers, one producer warpgroup starting them, two consumer
+warpgroups running ``wgmma`` (tiles ``BF16_BLOCK_Q`` x ``BF16_BLOCK_K``, P
+split into two bf16 halves to hold one bf16 ulp). fp32 inputs run on the CUDA
+cores: a choice by dtype, not a fallback. ``flash_attention`` checks its
+inputs, allocates the output with ``torch.empty``, and launches on the
+current CUDA stream without synchronising; a refused launch raises.
+``launches`` counts the launches this process made. ``flash_attention_bnh``
+is the reference's entry point over flattened batch x heads, on the same
+kernel.
 """
 
 from __future__ import annotations
@@ -26,7 +31,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 KERNEL = Kernel(SOURCE, "flash_attention_fwd", [*[PTR] * 4, *[I32] * 8, F32, I32, PTR])
 
 HEAD_DIMS = (32, 64, 80, 128, 192, 256)
-BLOCK_Q = 64
+BLOCK_Q = 64        # the fp32 kernel's query rows a block
+# The bf16 kernel's tiles (csrc/flash_attention.cu, WgTiles): a block of 128
+# query rows, two warpgroups of 64; key tiles by head dim.
+BF16_BLOCK_Q = 128
+BF16_WG_ROWS = 64
+BF16_BLOCK_K = {32: 128, 64: 128, 80: 128, 128: 96, 192: 64, 256: 48}
 # The reference's default Pallas tiles. The CUDA kernel picks its own (BLOCK_Q
 # query rows, a key tile by head dim and dtype), so `flash_attention_bnh`
 # takes these arguments and checks them, and they change nothing.

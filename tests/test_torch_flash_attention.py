@@ -7,9 +7,10 @@ At the main path's shapes the kernel is held at 2e-5 in fp32 and, in bf16,
 within one bf16 ulp of the plain output (8e-3 of |plain| + 1e-4): outputs
 there are ~0.01-0.02, so a flat 2e-2 would not tell a lost k tile from rounding.
 
-The CUDA kernel computes P·V on the tensor cores from bf16 operands, with P
-split into two bf16 parts; its numerics are rehearsed here in plain torch
-against the reference's oracle at the one-ulp bound.
+The CUDA kernel computes P·V on the tensor cores (wgmma) from bf16 operands,
+with P split into two bf16 parts; its numerics, and its walk over its own
+tiles, are rehearsed here in plain torch against the reference's oracle at
+the one-ulp bound, beside the case that shows why P stays split.
 
 JAX is imported only by the reference comparisons, so the CUDA cases also run
 on a machine with a card and no JAX (see README, "PyTorch / H100 port").
@@ -21,7 +22,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import flash_attention as kernel_mod  # noqa: E402
-from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    BF16_BLOCK_K, BF16_BLOCK_Q, BF16_WG_ROWS as WG_ROWS, HEAD_DIMS)
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref  # noqa: E402
 
@@ -116,42 +118,73 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def tensor_core_attention(q, k, v, window, *, scale, causal=True, block_k=64, split_p=True):
+def tensor_core_attention(q, k, v, window, *, scale, causal=True, block_k=64, split_p=True,
+                          block_q=None):
     """The bf16 CUDA kernel's arithmetic in plain torch: fp32 scores of bf16
     inputs (exact products, fp32 sums), an online softmax in base 2 over
     tiles of `block_k` keys, and P·V with P rounded as the kernel rounds it:
     P_hi = bf16(P) and P_lo = bf16(P - P_hi) into one fp32 accumulator (or P_hi
-    alone with split_p=False). Computing tiles the kernel skips adds exact
-    zeros, so every tile is computed here."""
+    alone with split_p=False).
+
+    With block_q=None every row walks every tile, masked: a tile the kernel
+    skips adds exact zeros. With block_q, the walk is the kernel's own:
+    blocks of `block_q` rows, warpgroups of WG_ROWS rows within them, each
+    over all the block's reachable k tiles, keys past T read as zeros, and
+    masks only on tiles that cross the warpgroup's diagonal, its window's
+    first key or T."""
     B, S, N, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    kk = k.float().repeat_interleave(N // K, 2).permute(0, 2, 3, 1)    # (B, N, hd, T)
-    vv = v.float().repeat_interleave(N // K, 2).transpose(1, 2)         # (B, N, T, hd)
-    qq = q.float().transpose(1, 2)                                       # (B, N, S, hd)
-    qpos = torch.arange(S)[:, None]
-    m = torch.full((B, N, S, 1), NEG_INF)
-    l = torch.zeros((B, N, S, 1))
-    acc = torch.zeros((B, N, S, hd))
     scale_log2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(1.4426950408889634,
                                                                            dtype=torch.float32)
-    for k0 in range(0, T, block_k):
-        kpos = torch.arange(k0, min(k0 + block_k, T))[None, :]
-        s = qq @ kk[..., k0:k0 + block_k]
-        keep = qpos - kpos < window
-        if causal:
-            keep = keep & (qpos >= kpos)
-        s = torch.where(keep, s * scale_log2, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        p_hi = _bf16(p)
-        pv = p_hi @ vv[:, :, k0:k0 + block_k]
-        if split_p:
-            pv = pv + _bf16(p - p_hi) @ vv[:, :, k0:k0 + block_k]
-        acc = acc * alpha + pv
-        m = m_new
-    return (acc / torch.clamp(l, min=1e-20)).transpose(1, 2).to(q.dtype)
+    if block_q is None:
+        rows = [(0, S, range(0, -(-T // block_k)), True)]
+    else:
+        rows = []
+        n_tiles = -(-T // block_k)
+        for q_start in range(0, S, block_q):
+            q_end = min(q_start + block_q, S) - 1
+            lo = q_start - window + 1
+            first = 0 if lo <= 0 else lo // block_k
+            stop = min(n_tiles, q_end // block_k + 1) if causal else n_tiles
+            for q0 in range(q_start, min(q_start + block_q, S), WG_ROWS):
+                rows.append((q0, min(q0 + WG_ROWS, S), range(first, stop), False))
+    pad = -T % block_k   # the kernel's tiles read keys past T as zeros
+    kk = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vv = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    kk = kk.repeat_interleave(N // K, 2).permute(0, 2, 3, 1)             # (B, N, hd, T + pad)
+    vv = vv.repeat_interleave(N // K, 2).transpose(1, 2)                 # (B, N, T + pad, hd)
+    out = torch.zeros((B, N, S, hd))
+    for r0, r1, tiles, always_mask in rows:
+        qq = q[:, r0:r1].float().transpose(1, 2)                         # (B, N, rows, hd)
+        qpos = torch.arange(r0, r1)[:, None]
+        m = torch.full((B, N, r1 - r0, 1), NEG_INF)
+        l = torch.zeros((B, N, r1 - r0, 1))
+        acc = torch.zeros((B, N, r1 - r0, hd))
+        for kt in tiles:
+            k0 = kt * block_k
+            kpos = torch.arange(k0, k0 + block_k)[None, :]
+            s = qq @ kk[..., k0:k0 + block_k]
+            edge = (always_mask or k0 + block_k > T or (causal and k0 + block_k - 1 > r0)
+                    or r0 + WG_ROWS - 1 - k0 >= window)
+            if edge:
+                keep = (kpos < T) & (qpos - kpos < window)
+                if causal:
+                    keep = keep & (qpos >= kpos)
+                s = torch.where(keep, s * scale_log2, NEG_INF)
+            else:
+                s = s * scale_log2
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            p_hi = _bf16(p)
+            pv = p_hi @ vv[:, :, k0:k0 + block_k]
+            if split_p:
+                pv = pv + _bf16(p - p_hi) @ vv[:, :, k0:k0 + block_k]
+            acc = acc * alpha + pv
+            m = m_new
+        out[:, :, r0:r1] = acc / torch.clamp(l, min=1e-20)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 # Rows shaped like the path's: gemma3-1b's 4 query heads over 1 kv head at hd
@@ -192,6 +225,53 @@ def test_splitting_p_removes_its_rounding():
     err_split = (split - exact).abs().max().item()
     err_single = (single - exact).abs().max().item()
     assert err_split <= 1e-5 and err_single > 100 * err_split, (err_split, err_single)
+
+
+# The bf16 kernel's own walk at each head dim (blocks of BF16_BLOCK_Q rows,
+# warpgroups of 64, BF16_BLOCK_K keys): causal under the global window and
+# under a window one key past a key tile, and non-causal with ragged S and T.
+# (shape, T, window, causal)
+WGMMA_EMULATED = [case for hd in HEAD_DIMS for case in (
+    ((1, 1000, 4, 2, hd), 1000, 1 << 30, True),
+    ((1, 1000, 4, 2, hd), 1000, BF16_BLOCK_K[hd] + 1, True),
+    ((2, 200, 4, 4, hd), 330, 1 << 30, False))]
+
+
+def _case_id(c):
+    return "B{}S{}N{}K{}hd{}".format(*c[0]) + f"-T{c[1]}-w{c[2]}" + ("" if c[3] else "-noncausal")
+
+
+def _wgmma_emulation_error(reference, case, split_p):
+    """max |emulation - oracle| over the one-ulp bound, at the kernel's tiles."""
+    jnp, ml_dtypes, jax_ref, _ = reference
+    shape, T, window, causal = case
+    q, k, v = _cast(make_inputs(*shape, seed=shape[-1] + window % 89, T=T), "bfloat16",
+                    ml_dtypes)
+    scale = shape[-1] ** -0.5
+    ref = np.asarray(jax_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.int32(window), causal=causal, scale=scale), np.float32)
+    out = tensor_core_attention(_torch(q), _torch(k), _torch(v), window, scale=scale,
+                                causal=causal, block_k=BF16_BLOCK_K[shape[-1]],
+                                block_q=BF16_BLOCK_Q, split_p=split_p).float().numpy()
+    bound = PATH_TOL["bfloat16"]["atol"] + PATH_TOL["bfloat16"]["rtol"] * np.abs(ref)
+    return float(np.max(np.abs(out - ref) / bound))
+
+
+@pytest.mark.parametrize("case", WGMMA_EMULATED, ids=_case_id)
+def test_wgmma_tiles_hold_one_bf16_ulp(reference, case):
+    """The kernel's walk (the block's reachable tiles for both warpgroups,
+    edge-only masks, keys past T as zeros) and its split P·V against the
+    reference's oracle, element by element within one bf16 ulp."""
+    assert _wgmma_emulation_error(reference, case, split_p=True) <= 1.0
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_one_rounding_of_p_breaks_the_bound_at_wgmma_tiles(reference, hd):
+    """Why P stays split: at the kernel's tiles, one bf16 rounding of P puts
+    some output past the one-ulp bound that the split holds."""
+    case = ((1, 1000, 4, 2, hd), 1000, 1 << 30, True)
+    assert _wgmma_emulation_error(reference, case, split_p=True) <= 1.0
+    assert _wgmma_emulation_error(reference, case, split_p=False) > 1.0
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -250,7 +330,7 @@ def test_cuda_kernel_matches_plain_non_causal():
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
 
 
-# The tensor-core kernel's edges, bf16 only (fp32 takes the CUDA-core kernel):
+# The bf16 kernel's edges, bf16 only (fp32 takes the CUDA-core kernel):
 # every head dim, ragged S, windows about a 64-key tile, non-causal, and
 # queries and keys of different lengths. (shape, T, window, causal)
 TC_CASES = ([((1, 1000, 4, 2, hd), 1000, w, True) for hd in HEAD_DIMS
@@ -270,6 +350,64 @@ def test_cuda_tensor_core_kernel_within_one_bf16_ulp(case):
     shape, T, window, causal = case
     q, k, v = (_torch(a).cuda().to(torch.bfloat16) for a in make_inputs(*shape, seed=9, T=T))
     scale = shape[-1] ** -0.5
+    out = flash_attention(q, k, v, window=window, scale=scale, causal=causal)
+    ref = attention_ref(q, k, v, window, scale=scale, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), **PATH_TOL["bfloat16"])
+
+
+# The wgmma kernel's tiles: blocks of 128 query rows in warpgroups of 64,
+# key tiles of BF16_BLOCK_K[hd] (128, 96, 64 or 48). Windows about the
+# warpgroup, the block and the key tile at every head dim; S ragged against
+# the block and the warpgroup (S 64 and 65: the second warpgroup has no row
+# or one); non-causal with T ragged against the key tile.
+# (shape, T, window, causal)
+WGMMA_CASES = ([((1, 1000, 4, 2, hd), 1000, w, True) for hd in HEAD_DIMS
+                for w in sorted({1, 63, 64, 65, 127, 128, 129, BF16_BLOCK_K[hd] - 1,
+                                 BF16_BLOCK_K[hd], BF16_BLOCK_K[hd] + 1})]
+               + [((2, S, 4, 2, hd), S, 1 << 30, True) for hd in HEAD_DIMS
+                  for S in (1, 64, 65, 127, 129, 300)]
+               + [((2, 129, 4, 4, hd), 65, 1 << 30, False) for hd in HEAD_DIMS]
+               + [((2, 64, 4, 2, hd), 300, 1 << 30, False) for hd in HEAD_DIMS])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=_case_id)
+def test_cuda_wgmma_kernel_edges_within_one_bf16_ulp(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shape, T, window, causal = case
+    q, k, v = (_torch(a).cuda().to(torch.bfloat16) for a in make_inputs(*shape, seed=15, T=T))
+    scale = shape[-1] ** -0.5
+    out = flash_attention(q, k, v, window=window, scale=scale, causal=causal)
+    ref = attention_ref(q, k, v, window, scale=scale, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), **PATH_TOL["bfloat16"])
+
+
+# Every shape the prefill paths give the kernel (chip_smoke.py's FLASH_PATH,
+# FLASH_ONE_CARD and FLASH_WIDE): gemma3-1b global and sliding 512,
+# zamba2-1.2b, olmoe-1b-7b, deepseek-coder-33b, gemma3-12b global and
+# sliding 1024, internvl2-1b, hubert-xlarge (hd 80, non-causal) and
+# nemotron-4-340b's hd 192. (shape, window, causal)
+FLASH_SHAPES = [((2, 2048, 4, 1, 256), 1 << 30, True), ((2, 2048, 4, 1, 256), 512, True),
+                ((2, 2048, 32, 32, 64), 1 << 30, True), ((2, 2048, 16, 16, 128), 1 << 30, True),
+                ((2, 2048, 56, 8, 128), 1 << 30, True), ((2, 2048, 16, 8, 256), 1 << 30, True),
+                ((2, 2048, 16, 8, 256), 1024, True), ((2, 2048, 14, 2, 64), 1 << 30, True),
+                ((2, 2048, 16, 16, 80), 1 << 30, False), ((1, 2048, 96, 8, 192), 1 << 30, True)]
+FLASH_SHAPE_IDS = ["gemma3-global", "gemma3-sliding", "zamba2", "olmoe", "deepseek",
+                   "gemma3-12b-global", "gemma3-12b-sliding", "internvl2", "hubert-hd80",
+                   "nemotron-hd192"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_SHAPES, ids=FLASH_SHAPE_IDS)
+def test_cuda_wgmma_kernel_at_every_path_shape(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (B, S, N, K, hd), window, causal = case
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v = ((torch.randn(s, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+               for s in ((B, S, N, hd), (B, S, K, hd), (B, S, K, hd)))
+    scale = hd ** -0.5
     out = flash_attention(q, k, v, window=window, scale=scale, causal=causal)
     ref = attention_ref(q, k, v, window, scale=scale, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), **PATH_TOL["bfloat16"])
