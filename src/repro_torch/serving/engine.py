@@ -12,6 +12,8 @@ fast path is an optimization hook, not a correctness need).
 The port of ``repro/serving/engine.py``: pools and parameters live on the
 engine's device (the card by default); each step copies the batch's block
 tables, lengths and tokens to the device and the B sampled token ids back.
+While a profiler runs (or after ``spans.enable()``) each step records an
+``engine.step`` span and one span a layer of its work (``repro_torch.spans``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.api import CXLSession
 from repro_torch.core.policy import PromotionPolicy
@@ -100,53 +103,55 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ loop
     def step(self) -> None:
-        self._admit()
-        running = [r for r in self.requests.values() if r.state == "running"]
-        if not running:
-            return
-        batch = running[: self.max_batch]
-        self._decode_batch(batch)
+        with spans.span("engine.step") as s:
+            self._admit()
+            running = [r for r in self.requests.values() if r.state == "running"]
+            batch = running[: self.max_batch]
+            s.set(batch=len(batch))
+            if batch:
+                self._decode_batch(batch)
 
     def _pages_needed(self, r: Request) -> int:
         total = len(r.prompt) + r.max_new_tokens
         return -(-total // self.page_size)
 
     def _admit(self) -> None:
-        for r in sorted(self.requests.values(), key=lambda x: x.rid):
-            if r.state not in ("queued", "preempted"):
-                continue
-            need = self._pages_needed(r)
-            if r.state == "preempted":
-                while self.pool.free_slots() < need and self._evict_someone(r):
-                    pass
+        with spans.span("engine.admit"):
+            for r in sorted(self.requests.values(), key=lambda x: x.rid):
+                if r.state not in ("queued", "preempted"):
+                    continue
+                need = self._pages_needed(r)
+                if r.state == "preempted":
+                    while self.pool.free_slots() < need and self._evict_someone(r):
+                        pass
+                    if self.pool.free_slots() < need:
+                        continue
+                    # policy decides how re-admitted pages behave: Policy1 promotes
+                    # them persistently; Policy2 keeps them read-through (demoted
+                    # again after every step — conservative, no placement change).
+                    r.read_through = not self.pool.policy.promote_on_hit((r.rid, 0))
+                    for p in range(need):
+                        if self.pool.touch(r.rid, p) is None:
+                            self.pool.promote(r.rid, p)
+                    r.state = "running"
+                    continue
+                if self.pool.free_slots() < need and not self._evict_someone(r):
+                    continue
                 if self.pool.free_slots() < need:
                     continue
-                # policy decides how re-admitted pages behave: Policy1 promotes
-                # them persistently; Policy2 keeps them read-through (demoted
-                # again after every step — conservative, no placement change).
-                r.read_through = not self.pool.policy.promote_on_hit((r.rid, 0))
-                for p in range(need):
-                    if self.pool.touch(r.rid, p) is None:
-                        self.pool.promote(r.rid, p)
+                shared = self.pool.shared_prefix
+                if (shared is not None and shared.prefix_tokens > 0
+                        and shared.matches(r.prompt)):
+                    # The prompt STARTS WITH the published prefix: import its KV
+                    # pages from the coherent segment, skip prefilling those tokens.
+                    imported = self.pool.import_prefix(r.rid)
+                    for p in range(imported, need):
+                        self.pool.alloc_page(r.rid, p)
+                    r.position = shared.prefix_tokens
+                else:
+                    for p in range(need):
+                        self.pool.alloc_page(r.rid, p)
                 r.state = "running"
-                continue
-            if self.pool.free_slots() < need and not self._evict_someone(r):
-                continue
-            if self.pool.free_slots() < need:
-                continue
-            shared = self.pool.shared_prefix
-            if (shared is not None and shared.prefix_tokens > 0
-                    and shared.matches(r.prompt)):
-                # The prompt STARTS WITH the published prefix: import its KV
-                # pages from the coherent segment, skip prefilling those tokens.
-                imported = self.pool.import_prefix(r.rid)
-                for p in range(imported, need):
-                    self.pool.alloc_page(r.rid, p)
-                r.position = shared.prefix_tokens
-            else:
-                for p in range(need):
-                    self.pool.alloc_page(r.rid, p)
-            r.state = "running"
 
     def _evict_someone(self, beneficiary: Request) -> bool:
         """Preempt the LRU running request (demote all its pages)."""
@@ -163,38 +168,46 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ decode
     def _decode_batch(self, batch: List[Request]) -> None:
-        tables = np.stack(
-            [self.pool.hot_table(r.rid, self.max_pages) for r in batch]
-        )
-        lengths = np.array([r.position for r in batch], np.int32)
-        tokens = np.array(
-            [[self._next_input(r)] for r in batch], np.int32
-        )
-        for r in batch:
-            for p in range(r.position // self.page_size + 1):
-                self.pool.touch(r.rid, p)
         dev = self.device
+        with spans.span("engine.tables"):
+            tables = np.stack(
+                [self.pool.hot_table(r.rid, self.max_pages) for r in batch]
+            )
+            lengths = np.array([r.position for r in batch], np.int32)
+            tokens = np.array(
+                [[self._next_input(r)] for r in batch], np.int32
+            )
+            tables, lengths, tokens = (torch.from_numpy(a).to(dev)
+                                       for a in (tables, lengths, tokens))
+        with spans.span("engine.touch"):
+            for r in batch:
+                for p in range(r.position // self.page_size + 1):
+                    self.pool.touch(r.rid, p)
         logits, self.pool.k_pool, self.pool.v_pool = paged_decode_step(
             self.params, self.cfg, self.pool.k_pool, self.pool.v_pool,
-            torch.from_numpy(tables).to(dev), torch.from_numpy(lengths).to(dev),
-            torch.from_numpy(tokens).to(dev), self.opts,
+            tables, lengths, tokens, self.opts,
         )
         self.decode_batches += 1
-        # argmax on the device; one host copy of the B token ids
-        next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
-        for i, r in enumerate(batch):
-            r.position += 1
-            if r.position >= len(r.prompt):
-                r.generated.append(int(next_tokens[i]))
-                if (len(r.generated) >= r.max_new_tokens
-                        or r.position >= self.max_pages * self.page_size - 1):
-                    r.state = "finished"
-                    self.pool.free_sequence(r.rid)
-            if r.state == "running" and r.read_through:
-                # Policy2: give the hot slots back immediately (next step re-DMAs)
-                for p in range(self._pages_needed(r)):
-                    self.pool.demote(r.rid, p)
-                r.state = "preempted"
+        with spans.span("engine.sample"):
+            # argmax on the device; one host copy of the B token ids
+            next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
+        with spans.span("engine.update"):
+            generated = 0
+            for i, r in enumerate(batch):
+                r.position += 1
+                if r.position >= len(r.prompt):
+                    r.generated.append(int(next_tokens[i]))
+                    generated += 1
+                    if (len(r.generated) >= r.max_new_tokens
+                            or r.position >= self.max_pages * self.page_size - 1):
+                        r.state = "finished"
+                        self.pool.free_sequence(r.rid)
+                if r.state == "running" and r.read_through:
+                    # Policy2: give the hot slots back immediately (next step re-DMAs)
+                    for p in range(self._pages_needed(r)):
+                        self.pool.demote(r.rid, p)
+                    r.state = "preempted"
+            spans.count("tokens", generated)
 
     def _next_input(self, r: Request) -> int:
         if r.position < len(r.prompt):

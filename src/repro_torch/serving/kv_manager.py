@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import emucxl as ecxl
 from repro_torch.core.api import CXLSession, as_session
 from repro_torch.core.policy import (
@@ -344,30 +345,34 @@ class PagedKVPool:
         ref = self._refs[(seq_id, page_idx)]
         if ref.hot_slot is None:
             return
-        slot = ref.hot_slot
-        payload = _page_payload(self.k_pool, self.v_pool, slot)
-        ref.cold_ptr = self.slab.alloc(len(payload), ecxl.REMOTE_MEMORY)
-        self.slab.write(ref.cold_ptr, payload)
-        ref.hot_slot = None
-        self._free.append(slot)
-        self.lru.remove((seq_id, page_idx))
+        with spans.span("kv.demote"):
+            slot = ref.hot_slot
+            payload = _page_payload(self.k_pool, self.v_pool, slot)
+            ref.cold_ptr = self.slab.alloc(len(payload), ecxl.REMOTE_MEMORY)
+            self.slab.write(ref.cold_ptr, payload)
+            ref.hot_slot = None
+            self._free.append(slot)
+            self.lru.remove((seq_id, page_idx))
+            spans.count("kv_d2h_bytes", len(payload))
 
     def promote(self, seq_id: int, page_idx: int) -> int:
         """Cold -> hot (Policy1 path). Returns the new hot slot."""
         ref = self._refs[(seq_id, page_idx)]
         assert ref.cold_ptr is not None
-        if not self._free:
-            victim = self.lru.lru_key()
-            if victim is None:
-                raise ecxl.OutOfTierMemory(0, self._page_bytes(), 0)
-            self.demote(*victim)
-        slot = self._free.pop()
-        _load_page(self.k_pool, self.v_pool, slot,
-                   self.slab.read(ref.cold_ptr, self._page_bytes()))
-        self.slab.free(ref.cold_ptr)
-        ref.cold_ptr = None
-        ref.hot_slot = slot
-        self.lru.add((seq_id, page_idx))
+        with spans.span("kv.promote"):
+            nbytes = self._page_bytes()
+            if not self._free:
+                victim = self.lru.lru_key()
+                if victim is None:
+                    raise ecxl.OutOfTierMemory(0, nbytes, 0)
+                self.demote(*victim)
+            slot = self._free.pop()
+            _load_page(self.k_pool, self.v_pool, slot, self.slab.read(ref.cold_ptr, nbytes))
+            self.slab.free(ref.cold_ptr)
+            ref.cold_ptr = None
+            ref.hot_slot = slot
+            self.lru.add((seq_id, page_idx))
+            spans.count("kv_h2d_bytes", nbytes)
         return slot
 
     def touch(self, seq_id: int, page_idx: int) -> Optional[int]:
@@ -390,6 +395,7 @@ class PagedKVPool:
         """Block table of hot slots for a sequence (-0 for unused; engine
         guarantees residency of all pages of RUNNING sequences)."""
         table = np.zeros((max_pages,), np.int32)
+        spans.count("entries", len(self._refs))
         for (sid, pidx), ref in self._refs.items():
             if sid == seq_id and pidx < max_pages and ref.hot_slot is not None:
                 table[pidx] = ref.hot_slot

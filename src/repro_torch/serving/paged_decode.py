@@ -15,6 +15,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import attention as attn
@@ -42,28 +43,30 @@ def paged_decode_step(
         raise NotImplementedError("paged decode is for attention archs")
     if cfg.moe and cfg.moe_first_dense:
         raise NotImplementedError("use uniform stacks for paged demo")
-    B = inputs.shape[0]
-    L, slots, page, K, hd = k_pool.shape
-    h = tf.embed_inputs(params, cfg, inputs)
-    windows = tf.layer_windows(cfg, cfg.num_layers)
-    positions = lengths[:, None].to(torch.int32)
-    page_idx = (lengths // page).long()
-    offset = (lengths % page).long()
-    slot_of = block_table[torch.arange(B, device=block_table.device), page_idx].long()
-    kv_lengths = lengths + 1
-    scale = float(cfg.resolved_head_dim) ** -0.5
-    for layer in range(L):
-        p = tf._layer(params["stack"], layer)
-        x = rms_norm(h, p["ln1"])
-        q, k_new, v_new = attn._project_qkv(p["attn"], x, positions, cfg.rope_theta,
-                                            cfg.qk_norm)
-        # write the new token's K/V into its page slot (in place)
-        k_pages, v_pages = k_pool[layer], v_pool[layer]
-        k_pages[slot_of, offset] = k_new[:, 0].to(k_pages.dtype)
-        v_pages[slot_of, offset] = v_new[:, 0].to(v_pages.dtype)
-        out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages, block_table,
-                              kv_lengths, int(windows[layer]), scale=scale)
-        a_out = torch.einsum("bnh,nhd->bd", out.to(x.dtype), p["attn"]["wo"])
-        h, _ = tf._finish_block(p, h, a_out[:, None], cfg, opts.moe_impl)
-    logits = tf.unembed(params, cfg, h)[:, 0]
+    # host time from entry to return: every launch enqueued, no wait
+    with spans.span("decode.dispatch"):
+        B = inputs.shape[0]
+        L, slots, page, K, hd = k_pool.shape
+        h = tf.embed_inputs(params, cfg, inputs)
+        windows = tf.layer_windows(cfg, cfg.num_layers)
+        positions = lengths[:, None].to(torch.int32)
+        page_idx = (lengths // page).long()
+        offset = (lengths % page).long()
+        slot_of = block_table[torch.arange(B, device=block_table.device), page_idx].long()
+        kv_lengths = lengths + 1
+        scale = float(cfg.resolved_head_dim) ** -0.5
+        for layer in range(L):
+            p = tf._layer(params["stack"], layer)
+            x = rms_norm(h, p["ln1"])
+            q, k_new, v_new = attn._project_qkv(p["attn"], x, positions, cfg.rope_theta,
+                                                cfg.qk_norm)
+            # write the new token's K/V into its page slot (in place)
+            k_pages, v_pages = k_pool[layer], v_pool[layer]
+            k_pages[slot_of, offset] = k_new[:, 0].to(k_pages.dtype)
+            v_pages[slot_of, offset] = v_new[:, 0].to(v_pages.dtype)
+            out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages, block_table,
+                                  kv_lengths, int(windows[layer]), scale=scale)
+            a_out = torch.einsum("bnh,nhd->bd", out.to(x.dtype), p["attn"]["wo"])
+            h, _ = tf._finish_block(p, h, a_out[:, None], cfg, opts.moe_impl)
+        logits = tf.unembed(params, cfg, h)[:, 0]
     return logits, k_pool, v_pool

@@ -4,6 +4,8 @@ preemption scenario, the port (on the CPU) against the reference.
 Tolerances: layer functions agree to 1e-5 in fp32; decode logits to 1e-3 over
 12 steps, as tests/test_serving.py:41 holds paged against dense decode.
 Generated token ids, tier statistics and modeled times must be equal.
+The preemption scenario also runs under the CPU profiler, where the port's
+spans (``repro_torch.spans``) record each step's layers and tier moves.
 """
 
 import dataclasses
@@ -21,7 +23,9 @@ import repro.models.transformer as r_tf  # noqa: E402
 import repro.serving.paged_decode as r_pd  # noqa: E402
 import repro_torch.models.layers as t_layers  # noqa: E402
 import repro_torch.models.transformer as t_tf  # noqa: E402
+import repro_torch.serving.kv_manager as t_kv  # noqa: E402
 import repro_torch.serving.paged_decode as t_pd  # noqa: E402
+from repro_torch import spans  # noqa: E402
 from repro_torch.interop import from_reference  # noqa: E402
 
 
@@ -35,6 +39,29 @@ def preemption(model):
     cfg_r, params_r, cfg_t, params_t = model
     return (tp.preemption_run(tp.REF, params_r, cfg_r),
             tp.preemption_run(tp.PORT, params_t, cfg_t))
+
+
+@pytest.fixture(scope="module")
+def traced(model):
+    """The port's preemption run under the CPU profiler: its result, the
+    records, the profiler, and ``len(_refs)`` at each ``hot_table`` call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walked = []
+    orig = t_kv.PagedKVPool.hot_table
+
+    def hot_table(self, seq_id, max_pages):
+        walked.append(len(self._refs))
+        return orig(self, seq_id, max_pages)
+
+    spans.clear()
+    t_kv.PagedKVPool.hot_table = hot_table
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = tp.preemption_run(tp.PORT, model[3], model[2])
+    finally:
+        t_kv.PagedKVPool.hot_table = orig
+    return out, spans.records(), prof, walked
 
 
 def _np(shape, seed, scale=1.0):
@@ -166,3 +193,129 @@ def test_engine_preemption_tier_stats_equal(preemption):
     assert out["tier_stats"]["preemptions"] > 0
     assert out["tier_stats"] == ref["tier_stats"]
     assert out["modeled_time"] == ref["modeled_time"]
+
+
+# ------------------------------------------------------------------ spans
+STEP_LAYERS = ["engine.admit", "engine.tables", "engine.touch", "decode.dispatch",
+               "engine.sample", "engine.update"]
+
+
+def test_engine_spans_follow_the_steps(preemption, traced):
+    ref, _ = preemption
+    out, recs, _, _ = traced
+    assert out["tokens"] == ref["tokens"]
+    assert out["tier_stats"] == ref["tier_stats"]
+    steps = spans.steps(recs, "engine.step")
+    assert len(recs) == len(steps) + sum(len(kids) for _, kids in steps)
+    assert [root["step"] for root, _ in steps] == sorted({r["step"] for r in recs})
+    for root, kids in steps:
+        assert root["attrs"]["batch"] > 0
+        children = sorted((k for k in kids if k["parent"] == root["id"]),
+                          key=lambda k: k["start_ns"])
+        assert [k["name"] for k in children] == STEP_LAYERS
+        for a, b in zip(children, children[1:]):
+            assert root["start_ns"] <= a["start_ns"] < a["end_ns"] <= b["start_ns"]
+        assert children[-1]["end_ns"] <= root["end_ns"]
+    assert sum(root["attrs"]["tokens"] for root, _ in steps) == sum(
+        len(t) for t in out["tokens"].values())
+
+
+def test_tier_moves_sit_under_the_span_that_caused_them(model, traced):
+    cfg = model[2]
+    _, recs, _, _ = traced
+    page_bytes = 2 * cfg.num_layers * 8 * cfg.num_kv_heads * cfg.resolved_head_dim * 4
+    by_id = {r["id"]: r for r in recs}
+    moves = [r for r in recs if r["name"] in ("kv.demote", "kv.promote")]
+    assert {r["name"] for r in moves} == {"kv.demote", "kv.promote"}
+    for r in moves:
+        own = "kv_d2h_bytes" if r["name"] == "kv.demote" else "kv_h2d_bytes"
+        assert r["attrs"][own] == page_bytes
+        cause = by_id[r["parent"]]
+        while cause["name"].startswith("kv."):       # a promote's eviction
+            cause = by_id[cause["parent"]]
+        # eviction and re-admission (Policy1 promotes on the touch) both admit
+        assert (cause["name"], cause["step"]) == ("engine.admit", r["step"])
+    for root, kids in spans.steps(recs, "engine.step"):
+        demoted = sum(k["name"] == "kv.demote" for k in kids)
+        promoted = sum(k["name"] == "kv.promote" for k in kids)
+        assert root["attrs"].get("kv_d2h_bytes", 0) == page_bytes * demoted
+        assert root["attrs"].get("kv_h2d_bytes", 0) == page_bytes * promoted
+
+
+def test_table_entries_count_the_walk(traced):
+    _, recs, _, walked = traced
+    calls = iter(walked)
+    for root, kids in spans.steps(recs, "engine.step"):
+        (tables,) = [k for k in kids if k["name"] == "engine.tables"]
+        assert tables["attrs"]["entries"] == sum(
+            next(calls) for _ in range(root["attrs"]["batch"]))
+    assert next(calls, None) is None
+
+
+def test_spans_share_the_profilers_clock(model, traced):
+    """Each profiler event, on the trace's clock, lies inside the span that
+    issued it: argmax in its step's ``engine.sample``, the projections (the
+    same einsums each step) in its step's ``decode.dispatch``, and every aten
+    op after the engine's construction inside a step. Times in microseconds
+    after the trace's start, the unit of the events' ``time_range``."""
+    _, recs, prof, _ = traced
+    names = {r["name"] for r in recs}
+    assert not any(e.name in names for e in prof.events())      # no annotation
+    start = prof.profiler.kineto_results.trace_start_ns()
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events() if e.name.startswith("aten::"))
+
+    def spans_named(name):
+        return [((r["start_ns"] - start) / 1e3, (r["end_ns"] - start) / 1e3)
+                for r in sorted(recs, key=lambda r: r["start_ns"]) if r["name"] == name]
+
+    def within(ev, sp):
+        return sp[0] <= ev[0] and ev[1] <= sp[1]
+
+    L = model[2].num_layers
+    dispatch, sample = spans_named("decode.dispatch"), spans_named("engine.sample")
+    einsums = [e for e in events if e[2] == "aten::einsum"]
+    argmaxes = [e for e in events if e[2] == "aten::argmax"]
+    per = len(einsums) // len(dispatch)
+    assert per >= L and per * len(dispatch) == len(einsums) and len(argmaxes) == len(sample)
+    assert all(within(e, dispatch[i // per]) for i, e in enumerate(einsums))
+    assert all(within(e, sample[i]) for i, e in enumerate(argmaxes))
+    for name in ("engine.tables", "engine.touch"):
+        assert not any(within(e, sp) for e in einsums for sp in spans_named(name))
+    steps = spans_named("engine.step")
+    outside = [e for e in events if not any(within(e, sp) for sp in steps)]
+    assert all(e[1] <= steps[0][0] for e in outside)
+
+
+def test_spans_record_nothing_outside_a_profiler(model, traced):
+    spans.clear()
+    out = tp.preemption_run(tp.PORT, model[3], model[2])
+    assert spans.records() == []
+    assert out["tokens"] == traced[0]["tokens"]
+
+
+def test_span_ring_drops_beyond_its_bound():
+    rec = spans.Recorder(capacity=4)
+    with rec.span("off") as s:
+        s.set(a=1)
+        rec.count("k")
+    assert rec.records() == []
+    rec.enable()
+    try:
+        with rec.span("root"):
+            with rec.span("child"):
+                rec.count("k", 3)
+        for i in range(4):
+            with rec.span("s", i=i):
+                rec.count("k", 2)
+    finally:
+        rec.disable()
+    kept = rec.records()
+    assert [r["attrs"].get("i") for r in kept] == [0, 1, 2, 3]
+    assert rec.dropped == 2 and [r["attrs"]["k"] for r in kept] == [2] * 4
+    assert len({r["step"] for r in kept}) == 4 and all(r["parent"] is None for r in kept)
+    rec.clear()
+    assert rec.records() == [] and rec.dropped == 0
+    with rec.span("off"):
+        pass
+    assert rec.records() == []
