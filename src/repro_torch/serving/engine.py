@@ -170,9 +170,7 @@ class ServingEngine:
     def _decode_batch(self, batch: List[Request]) -> None:
         dev = self.device
         with spans.span("engine.tables"):
-            tables = np.stack(
-                [self.pool.hot_table(r.rid, self.max_pages) for r in batch]
-            )
+            tables = self.pool.hot_tables([r.rid for r in batch], self.max_pages)
             lengths = np.array([r.position for r in batch], np.int32)
             tokens = np.array(
                 [[self._next_input(r)] for r in batch], np.int32

@@ -203,6 +203,25 @@ class PageRef:
         return self.hot_slot is not None
 
 
+class _SeqPages:
+    """One sequence's entries of ``PagedKVPool._refs``, by page index, and its
+    block-table row: the hot slot at each page index, 0 where the page is cold
+    or not held."""
+
+    __slots__ = ("refs", "slots")
+
+    def __init__(self):
+        self.refs: Dict[int, PageRef] = {}
+        self.slots = np.zeros((16,), np.int32)
+
+    def place(self, page_idx: int, slot: int) -> None:
+        if page_idx >= len(self.slots):
+            grown = np.zeros((max(2 * len(self.slots), page_idx + 1),), np.int32)
+            grown[: len(self.slots)] = self.slots
+            self.slots = grown
+        self.slots[page_idx] = slot
+
+
 class PagedKVPool:
     """Hot (HBM) page pool + cold (emucxl remote) spill, with promotion policies."""
 
@@ -252,6 +271,10 @@ class PagedKVPool:
         self.stats = AccessStats()
         self.lru = LRUTier(float(num_slots), name="kv-hot")
         self._refs: Dict[Tuple[int, int], PageRef] = {}
+        # The same entries by sequence, kept with `_refs` wherever a page is
+        # allocated, freed, demoted or promoted: a table, a residency or a
+        # sequence's release reads its own pages, not every held one.
+        self._seqs: Dict[int, _SeqPages] = {}
         self.shared_prefix: Optional[SharedPrefixKV] = None
         self.prefix_imports = 0
 
@@ -291,15 +314,28 @@ class PagedKVPool:
         key = (seq_id, page_idx)
         if key in self._refs:
             raise ecxl.EmuCXLError(f"page {key} already allocated")
+        if page_idx < 0:
+            raise ecxl.EmuCXLError(f"page {key}: a page index is at least 0")
         if not self._free:
             raise ecxl.OutOfTierMemory(0, self._page_bytes(), 0)
         slot = self._free.pop()
-        self._refs[key] = PageRef(seq_id, page_idx, hot_slot=slot)
+        ref = self._refs[key] = PageRef(seq_id, page_idx, hot_slot=slot)
+        seq = self._seqs.get(seq_id)
+        if seq is None:
+            seq = self._seqs[seq_id] = _SeqPages()
+        seq.refs[page_idx] = ref
+        seq.place(page_idx, slot)
         self.lru.add(key)
         return slot
 
     def free_page(self, seq_id: int, page_idx: int) -> None:
         ref = self._refs.pop((seq_id, page_idx))
+        seq = self._seqs[seq_id]
+        del seq.refs[page_idx]
+        if seq.refs:
+            seq.slots[page_idx] = 0
+        else:
+            del self._seqs[seq_id]
         if ref.hot_slot is not None:
             self._free.append(ref.hot_slot)
             self.lru.remove((seq_id, page_idx))
@@ -307,8 +343,10 @@ class PagedKVPool:
             self.slab.free(ref.cold_ptr)
 
     def free_sequence(self, seq_id: int) -> None:
-        for key in [k for k in self._refs if k[0] == seq_id]:
-            self.free_page(*key)
+        seq = self._seqs.get(seq_id)
+        if seq is not None:
+            for page_idx in list(seq.refs):
+                self.free_page(seq_id, page_idx)
 
     # ------------------------------------------------------------------ shared prefix
     def attach_shared_prefix(self, shared: SharedPrefixKV) -> None:
@@ -351,6 +389,7 @@ class PagedKVPool:
             ref.cold_ptr = self.slab.alloc(len(payload), ecxl.REMOTE_MEMORY)
             self.slab.write(ref.cold_ptr, payload)
             ref.hot_slot = None
+            self._seqs[seq_id].slots[page_idx] = 0
             self._free.append(slot)
             self.lru.remove((seq_id, page_idx))
             spans.count("kv_d2h_bytes", len(payload))
@@ -371,6 +410,7 @@ class PagedKVPool:
             self.slab.free(ref.cold_ptr)
             ref.cold_ptr = None
             ref.hot_slot = slot
+            self._seqs[seq_id].place(page_idx, slot)
             self.lru.add((seq_id, page_idx))
             spans.count("kv_h2d_bytes", nbytes)
         return slot
@@ -394,18 +434,29 @@ class PagedKVPool:
     def hot_table(self, seq_id: int, max_pages: int) -> np.ndarray:
         """Block table of hot slots for a sequence (-0 for unused; engine
         guarantees residency of all pages of RUNNING sequences)."""
-        table = np.zeros((max_pages,), np.int32)
-        spans.count("entries", len(self._refs))
-        for (sid, pidx), ref in self._refs.items():
-            if sid == seq_id and pidx < max_pages and ref.hot_slot is not None:
-                table[pidx] = ref.hot_slot
-        return table
+        return self.hot_tables([seq_id], max_pages)[0]
+
+    def hot_tables(self, seq_ids, max_pages: int) -> np.ndarray:
+        """The block tables of a batch, one ``hot_table`` row a sequence, each
+        copied from the sequence's own row; counts the pages the rows hold as
+        ``entries``."""
+        tables = np.zeros((len(seq_ids), max_pages), np.int32)
+        entries = 0
+        for row, seq_id in zip(tables, seq_ids):
+            seq = self._seqs.get(seq_id)
+            if seq is not None:
+                n = min(max_pages, len(seq.slots))
+                row[:n] = seq.slots[:n]
+                entries += len(seq.refs)
+        spans.count("entries", entries)
+        return tables
 
     def residency(self, seq_id: int) -> Tuple[int, int]:
-        hot = sum(1 for (s, _), r in self._refs.items() if s == seq_id and r.is_local)
-        cold = sum(1 for (s, _), r in self._refs.items()
-                   if s == seq_id and not r.is_local)
-        return hot, cold
+        seq = self._seqs.get(seq_id)
+        if seq is None:
+            return 0, 0
+        hot = sum(1 for r in seq.refs.values() if r.is_local)
+        return hot, len(seq.refs) - hot
 
     def write_token(self, seq_id: int, layer_kv: Tuple[torch.Tensor, torch.Tensor],
                     position: int) -> None:

@@ -23,6 +23,7 @@ import repro.models.transformer as r_tf  # noqa: E402
 import repro.serving.paged_decode as r_pd  # noqa: E402
 import repro_torch.models.layers as t_layers  # noqa: E402
 import repro_torch.models.transformer as t_tf  # noqa: E402
+import repro_torch.serving.engine as t_engine  # noqa: E402
 import repro_torch.serving.kv_manager as t_kv  # noqa: E402
 import repro_torch.serving.paged_decode as t_pd  # noqa: E402
 from repro_torch import spans  # noqa: E402
@@ -44,23 +45,25 @@ def preemption(model):
 @pytest.fixture(scope="module")
 def traced(model):
     """The port's preemption run under the CPU profiler: its result, the
-    records, the profiler, and ``len(_refs)`` at each ``hot_table`` call."""
+    records, the profiler, and at each ``hot_tables`` call the pages that a
+    walk of ``_refs`` finds for the batch's sequences, beside ``len(_refs)``."""
     from torch.profiler import ProfilerActivity, profile
 
     walked = []
-    orig = t_kv.PagedKVPool.hot_table
+    orig = t_kv.PagedKVPool.hot_tables
 
-    def hot_table(self, seq_id, max_pages):
-        walked.append(len(self._refs))
-        return orig(self, seq_id, max_pages)
+    def hot_tables(self, seq_ids, max_pages):
+        held = sum(1 for s in seq_ids for k in self._refs if k[0] == s)
+        walked.append((held, len(self._refs)))
+        return orig(self, seq_ids, max_pages)
 
     spans.clear()
-    t_kv.PagedKVPool.hot_table = hot_table
+    t_kv.PagedKVPool.hot_tables = hot_tables
     try:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             out = tp.preemption_run(tp.PORT, model[3], model[2])
     finally:
-        t_kv.PagedKVPool.hot_table = orig
+        t_kv.PagedKVPool.hot_tables = orig
     return out, spans.records(), prof, walked
 
 
@@ -156,7 +159,7 @@ def _pool_program(P, scenario):
         pool.demote(0, 0)
         obs += [pool.touch(0, 0) for _ in range(3)]
         obs += [pool.stats.remote_hits, pool.residency(0)]
-    else:  # eviction under promote pressure: 2 hot slots
+    elif scenario == "eviction":  # under promote pressure: 2 hot slots
         pool = P.kv.PagedKVPool(1, 2, 8, 2, 16, lib=lib, **P.dev_kw)
         pool.alloc_page(0, 0)
         pool.alloc_page(1, 0)
@@ -164,21 +167,114 @@ def _pool_program(P, scenario):
         pool.alloc_page(2, 0)
         pool.promote(0, 0)
         obs += [pool.residency(s) for s in (0, 1, 2)]
+    elif scenario == "interleave":
+        # a seeded mix of every mutating call over 4 sequences of up to 6
+        # pages and 4 hot slots, so promotes evict; tables of 2 pages cut the
+        # longer sequences. After each call, every sequence's table and
+        # residency.
+        pool = P.kv.PagedKVPool(1, 4, 4, 2, 8, lib=lib, policy=P.policy.Policy1(),
+                                **P.dev_kw)
+        rng = np.random.default_rng(26)
+        for _ in range(240):
+            op = INTERLEAVED[int(rng.integers(len(INTERLEAVED)))]
+            s, p = int(rng.integers(4)), int(rng.integers(6))
+            cold = [k for k, ref in pool._refs.items() if ref.cold_ptr is not None]
+            if op in ("demote", "free_page", "write_token") and pool._refs:
+                s, p = list(pool._refs)[int(rng.integers(len(pool._refs)))]
+            elif op == "promote" and cold:
+                s, p = cold[int(rng.integers(len(cold)))]
+            ref = pool._refs.get((s, p))
+            if op == "alloc_page" and ref is None and pool.free_slots():
+                pool.alloc_page(s, p)
+            elif op == "demote" and ref is not None:
+                pool.demote(s, p)
+            elif op == "promote" and ref is not None and ref.cold_ptr is not None:
+                obs.append(("free_slots", pool.free_slots()))
+                pool.promote(s, p)
+            elif op == "touch":
+                obs.append(pool.touch(s, p))
+            elif op == "free_page" and ref is not None:
+                pool.free_page(s, p)
+            elif op == "free_sequence":
+                pool.free_sequence(s)
+            elif op == "write_token" and ref is not None:
+                obs.append(("cold", ref.hot_slot is None))
+                kv = rng.standard_normal((2, 1, 2, 8)).astype(np.float32)
+                pool.write_token(s, (P.asarray(kv[0]), P.asarray(kv[1])),
+                                 p * 4 + int(rng.integers(4)))
+            else:
+                continue
+            obs.append((op, s, p))
+            obs += [pool.hot_table(q, 2) for q in range(4)]
+            obs += [pool.residency(q) for q in range(4)]
+        obs += [np.asarray(pool.k_pool), np.asarray(pool.v_pool)]
     obs += [pool.stats.local_hits, pool.stats.remote_hits, lib.stats(0), lib.stats(1),
             dict(lib.modeled_time)]
     lib.exit()
     return obs
 
 
-@pytest.mark.parametrize("scenario", ["roundtrip", "policy2", "eviction"])
+INTERLEAVED = ["alloc_page"] * 4 + ["demote", "promote", "touch", "write_token"] * 2 + [
+    "free_page", "free_sequence"]
+
+
+@pytest.mark.parametrize("scenario", ["roundtrip", "policy2", "eviction", "interleave"])
 def test_paged_kv_pool_matches(scenario):
     ref, out = _pool_program(tp.REF, scenario), _pool_program(tp.PORT, scenario)
     assert len(ref) == len(out)
     for r, o in zip(ref, out, strict=True):
         if isinstance(r, np.ndarray):
+            assert o.dtype == r.dtype
             np.testing.assert_array_equal(o, r)
         else:
             assert o == r
+    if scenario == "interleave":
+        marks = [o for o in out if isinstance(o, tuple) and isinstance(o[0], str)]
+        assert {o[0] for o in marks if o[0] in INTERLEAVED} == set(INTERLEAVED)
+        assert ("free_slots", 0) in marks and ("cold", True) in marks   # evicting promotes
+        assert any(o.any() for o in out if isinstance(o, np.ndarray) and o.shape == (2,))
+        assert max(sum(o) for o in out if isinstance(o, tuple) and isinstance(o[0], int)) > 2
+
+
+def test_page_index_follows_the_refs(model, monkeypatch):
+    """After every step of the port's preemption run (allocations, demotes,
+    promotes, releases) and after ``free_sequence`` of every request, each
+    sequence's page index holds the entries a walk of ``_refs`` finds, in
+    their order, with its hot slots; freed sequences hold nothing."""
+    engines = []
+    step = t_engine.ServingEngine.step
+
+    def checked_step(self):
+        step(self)
+        engines[:] = [self]
+        pool = self.pool
+        by_seq = {}
+        for (s, p), ref in pool._refs.items():
+            by_seq.setdefault(s, {})[p] = ref
+        assert set(pool._seqs) == set(by_seq)
+        for s, refs in by_seq.items():
+            seq = pool._seqs[s]
+            assert list(seq.refs) == list(refs)
+            assert all(seq.refs[p] is ref for p, ref in refs.items())
+            row = np.zeros_like(seq.slots)
+            for p, ref in refs.items():
+                row[p] = ref.hot_slot or 0
+            np.testing.assert_array_equal(seq.slots, row)
+
+    monkeypatch.setattr(t_engine.ServingEngine, "step", checked_step)
+    out = tp.preemption_run(tp.PORT, model[3], model[2])
+    assert out["tier_stats"]["preemptions"] > 0
+    (eng,) = engines
+    for rid in eng.requests:
+        eng.pool.free_sequence(rid)
+    assert eng.pool._seqs == {} and eng.pool._refs == {}
+
+
+def test_pool_refuses_a_negative_page_index():
+    pool = t_kv.PagedKVPool(1, 2, 4, 1, 8, device="cpu")
+    with pytest.raises(t_kv.ecxl.EmuCXLError):
+        pool.alloc_page(0, -1)
+    assert pool.free_slots() == 2 and pool._refs == {} and pool._seqs == {}
 
 
 # ------------------------------------------------------------------ engine
@@ -243,12 +339,15 @@ def test_tier_moves_sit_under_the_span_that_caused_them(model, traced):
 
 
 def test_table_entries_count_the_walk(traced):
+    """``entries`` on a step's ``engine.tables`` is the pages the pool holds
+    for the batch's sequences, counted once a table: at most every held page."""
     _, recs, _, walked = traced
     calls = iter(walked)
     for root, kids in spans.steps(recs, "engine.step"):
         (tables,) = [k for k in kids if k["name"] == "engine.tables"]
-        assert tables["attrs"]["entries"] == sum(
-            next(calls) for _ in range(root["attrs"]["batch"]))
+        held, every = next(calls)
+        assert tables["attrs"]["entries"] == held <= every
+        assert held >= root["attrs"]["batch"]
     assert next(calls, None) is None
 
 
