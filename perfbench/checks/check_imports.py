@@ -1,6 +1,6 @@
 """Nothing the benchmark runs imports JAX or the JAX package ``repro``
 (top-level names compared whole: ``repro_torch`` is not ``repro``), and the
-reference imports nothing of the program."""
+reference (every architecture module) imports nothing of the program."""
 
 import ast
 import subprocess
@@ -12,14 +12,22 @@ from perfbench.lib.files import BENCH, ROOT
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 
 
-def _imports(path: Path) -> set:
+def _modules(path: Path) -> set:
+    """The dotted names of the modules `path` imports (relative imports
+    resolved against its package)."""
+    package = ".".join(path.relative_to(ROOT).parent.parts)
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
-            names |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            names.add(node.module.split(".")[0])
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = package.rsplit(".", node.level - 1)[0] if node.level else ""
+            names.add(".".join(p for p in (base, node.module) if p))
     return names
+
+
+def _imports(path: Path) -> set:
+    return {name.split(".")[0] for name in _modules(path)}
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -28,8 +36,13 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
+    """Architecture modules share helpers among themselves, and import
+    nothing else but the standard library's few and torch."""
     for path in (BENCH / "reference").rglob("*.py"):
-        assert _imports(path) <= {"__future__", "contextlib", "typing", "torch"}, path
+        others = {name for name in _modules(path)
+                  if name != "perfbench.reference" and not name.startswith("perfbench.reference.")}
+        assert {n.split(".")[0] for n in others} <= {"__future__", "contextlib", "copy", "typing",
+                                                     "torch"}, path
 
 
 def test_a_run_loads_no_jax():

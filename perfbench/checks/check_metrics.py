@@ -4,6 +4,7 @@ window, the rooflines and the idle share read from a trace."""
 import types
 
 import pytest
+import torch
 
 from perfbench.lib import files, flops, profile, stats
 from perfbench.lib.cell import Check, Record
@@ -52,6 +53,61 @@ def test_step_counts():
     assert flops.attention_pair_flops(MODEL) == 3 * 4 * 2 * 4
     assert flops.decode_flops(MODEL, [5, 7]) == 2 * 2 * (3 * per_layer + 8 * 300) + 96 * 12
     assert flops.prefill_flops(MODEL, 4) == 2 * 3 * per_layer * 4 + 2 * 8 * 300 + 96 * 10
+
+
+BF16, FP32 = torch.bfloat16, torch.float32
+FROZEN = {
+    # matmul_params, attention_pair_flops, prefill_flops(S=1448),
+    # decode_flops([100, 200]), layers that run attention; then the layout
+    "deepseek-coder-33b": (32_879_673_344, 1_777_664, 9.7084901064704e13, 1.32976836608e11, 62, [
+        ("embed", (32256, 7168), BF16),
+        ("stack.ln1", (62, 7168), BF16),
+        ("stack.ln2", (62, 7168), BF16),
+        ("stack.attn.wq", (62, 7168, 56, 128), BF16),
+        ("stack.attn.wk", (62, 7168, 8, 128), BF16),
+        ("stack.attn.wv", (62, 7168, 8, 128), BF16),
+        ("stack.attn.wo", (62, 56, 128, 7168), BF16),
+        ("stack.mlp.w_gate", (62, 7168, 19200), BF16),
+        ("stack.mlp.w_up", (62, 7168, 19200), BF16),
+        ("stack.mlp.w_down", (62, 19200, 7168), BF16),
+        ("final_norm", (7168,), BF16),
+        ("unembed", (7168, 32256), BF16),
+    ]),
+    "olmoe-1b-7b": (1_075_838_976, 131_072, 3.253340209152e12, 4.754767872e9, 16, [
+        ("embed", (50432, 2048), BF16),
+        ("stack.ln1", (16, 2048), BF16),
+        ("stack.ln2", (16, 2048), BF16),
+        ("stack.attn.wq", (16, 2048, 16, 128), BF16),
+        ("stack.attn.wk", (16, 2048, 16, 128), BF16),
+        ("stack.attn.wv", (16, 2048, 16, 128), BF16),
+        ("stack.attn.wo", (16, 16, 128, 2048), BF16),
+        ("stack.attn.q_norm", (16, 128), BF16),
+        ("stack.attn.k_norm", (16, 128), BF16),
+        ("stack.moe.router", (16, 2048, 64), FP32),
+        ("stack.moe.w_gate", (16, 64, 2048, 1024), BF16),
+        ("stack.moe.w_up", (16, 64, 2048, 1024), BF16),
+        ("stack.moe.w_down", (16, 64, 1024, 2048), BF16),
+        ("final_norm", (2048,), BF16),
+        ("unembed", (2048, 50432), BF16),
+    ]),
+}
+
+
+@pytest.mark.parametrize("config", sorted(FROZEN))
+def test_published_counts_and_layouts_are_frozen(config):
+    """The counts the cells' metrics divide by, and the leaves the seed draws
+    in order, for the published configurations: a change to either moves
+    every reading of the cells."""
+    params, pair, prefill, decode, attn_layers, leaves = FROZEN[config]
+    model = files.load_json("configs", config)
+    assert flops.matmul_params(model) == params
+    assert flops.attention_pair_flops(model) == pair
+    assert flops.prefill_flops(model, 1448) == prefill
+    assert flops.decode_flops(model, [100, 200]) == decode
+    assert flops.mixer_token_flops(model) == 0
+    assert flops.attention_layer_count(model) == attn_layers
+    layout = files.architecture(model).layout(model)
+    assert [(name, tuple(shape), dtype) for name, (shape, dtype) in layout.items()] == leaves
 
 
 def test_kernel_bounds():

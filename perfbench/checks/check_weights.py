@@ -1,5 +1,5 @@
-"""The benchmark's weight layout is the port's tree, leaf for leaf, and its
-draw repeats per seed."""
+"""The benchmark's weight layout (each configuration's architecture module)
+is the port's tree, leaf for leaf, and its draw repeats per seed."""
 
 import pytest
 import torch
@@ -21,19 +21,21 @@ def _port_tree(model):
 def test_layout_is_the_ports_meta_tree(config):
     model = files.load_json("configs", config)
     port = {name: (tuple(t.shape), t.dtype) for name, t in weights.leaves(_port_tree(model))}
-    ours = {name: (tuple(shape), dtype) for name, (shape, dtype) in weights.layout(model).items()}
+    ours = {name: (tuple(shape), dtype)
+            for name, (shape, dtype) in files.architecture(model).layout(model).items()}
     assert ours == port
 
 
 @pytest.mark.parametrize("config", CONFIGS)
 def test_draw_repeats_per_seed(config):
     model = tiny_model(files.load_json("configs", config))
+    arch = files.architecture(model)
     a, b = weights.draw(model, 2**31 + 5, "cpu"), weights.draw(model, 2**31 + 5, "cpu")
     c = weights.draw(model, 2**31 + 6, "cpu")
     for (name, x), (_, y), (_, z) in zip(weights.leaves(a), weights.leaves(b), weights.leaves(c),
                                          strict=True):
         assert torch.equal(x, y), name
-        if weights.is_norm(name):
+        if arch.is_norm(name):
             assert not x.any(), name
         else:
             assert not torch.equal(x, z), name

@@ -18,10 +18,10 @@ import time
 import numpy as np
 import torch
 
-from perfbench.lib import traffic, weights
+from perfbench.lib import files, traffic, weights
 from perfbench.lib.cell import Cell, Check, Record
 from perfbench.lib.profile import span, traced_slice
-from perfbench.reference import model as ref
+from perfbench.reference.common import gaps, relative
 
 TOKEN_STREAM = 0x70C5
 
@@ -102,28 +102,38 @@ def run(cell: Cell) -> Record:
 CHECKS = ("logits_rel", "kv_rel", "top_gap")
 
 
+def kv_slots(model: dict) -> dict:
+    """The model's layer -> the index of its K and V in the program's
+    ``caches["kv"]``, which stacks the layers that run attention in order."""
+    layers = files.architecture(model).attention_layers(model)
+    return {layer: n for n, layer in enumerate(layers)}
+
+
 def compare(cell: Cell, params: dict, kept: dict) -> list:
     """The kept calls' last logits and caches against the fp32 reference:
-    the worst relative error of the logits, and of any layer's K or V, and
-    how far the program's next token (its best logit) lies below the
-    reference's best, over the kept calls and their batch rows."""
+    the worst relative error of the logits, and of any attention layer's K
+    or V, and how far the program's next token (its best logit) lies below
+    the reference's best, over the kept calls and their batch rows."""
     limits = cell.workload["limits"]
     if not kept:
         return [Check(name, float("nan"), float(limits[name])) for name in CHECKS]
+    arch = files.architecture(cell.model)
+    slot = kv_slots(cell.model)
     worst_logits = worst_kv = worst_gap = 0.0
     for toks, logits, (ks, vs) in kept.values():
         for b in range(toks.shape[0]):
             def on_kv(layer, _j, k, v, b=b, ks=ks, vs=vs):
                 nonlocal worst_kv
-                worst_kv = max(worst_kv, ref.relative(ks[layer, b].to(k.device), k),
-                               ref.relative(vs[layer, b].to(v.device), v))
+                n = slot[layer]
+                worst_kv = max(worst_kv, relative(ks[n, b].to(k.device), k),
+                               relative(vs[n, b].to(v.device), v))
 
             S = toks.shape[1]
-            (out,) = ref.forward(params, cell.model, [toks[b]], mode="fp32",
-                                 logits_at=[torch.tensor([S - 1], device=toks.device)],
-                                 on_kv=on_kv)
-            worst_logits = max(worst_logits, ref.relative(logits[b], out[0]))
-            worst_gap = max(worst_gap, float(ref.gaps(out, logits[b].argmax()[None])[0]))
+            (out,) = arch.forward(params, cell.model, [toks[b]], mode="fp32",
+                                  logits_at=[torch.tensor([S - 1], device=toks.device)],
+                                  on_kv=on_kv)
+            worst_logits = max(worst_logits, relative(logits[b], out[0]))
+            worst_gap = max(worst_gap, float(gaps(out, logits[b].argmax()[None])[0]))
     return [Check(name, value, float(limits[name]))
             for name, value in zip(CHECKS, (worst_logits, worst_kv, worst_gap), strict=True)]
 
@@ -134,21 +144,23 @@ def control(cell: Cell, rec: Record) -> list:
     call at a time, its fp32 caches held in host memory: beside the served
     weights the card has no room for them)."""
     params = rec.inputs["params"]
+    arch = files.architecture(cell.model)
+    slot = kv_slots(cell.model)
     worst: dict = {}
     for i, (toks, _, _) in rec.inputs["kept"].items():
         last = [torch.tensor([toks.shape[1] - 1], device=toks.device)]
         rows, ks, vs = [], [], []
         for b in range(toks.shape[0]):
-            kv: list = []
+            kv: dict = {}
 
-            def keep(_layer, _j, k, v, kv=kv):
-                kv.append((k.cpu(), v.cpu()))
+            def keep(layer, _j, k, v, kv=kv):
+                kv[slot[layer]] = (k.cpu(), v.cpu())
 
-            (l8,) = ref.forward(params, cell.model, [toks[b]], mode="fp8", logits_at=last,
-                                on_kv=keep)
+            (l8,) = arch.forward(params, cell.model, [toks[b]], mode="fp8", logits_at=last,
+                                 on_kv=keep)
             rows.append(l8[0])
-            ks.append(torch.stack([k for k, _ in kv]))
-            vs.append(torch.stack([v for _, v in kv]))
+            ks.append(torch.stack([kv[n][0] for n in range(len(slot))]))
+            vs.append(torch.stack([kv[n][1] for n in range(len(slot))]))
         outputs = (toks, torch.stack(rows), (torch.stack(ks, 1), torch.stack(vs, 1)))
         for c in compare(cell, params, {i: outputs}):
             if c.name not in worst or not c.value <= worst[c.name].value:

@@ -28,10 +28,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from perfbench.lib import traffic, weights
+from perfbench.lib import files, traffic, weights
 from perfbench.lib.cell import Cell, Check, Record
 from perfbench.lib.profile import span, traced_slice
-from perfbench.reference import model as ref
+from perfbench.reference.common import gaps
 
 
 class ClosedLoop:
@@ -253,8 +253,9 @@ def compare(cell: Cell, params: dict, served: list, chosen: Optional[list] = Non
     seqs, rows, toks = _teacher_forced(served, cell.device)
     if chosen is not None:
         toks = chosen
-    logits = ref.forward(params, cell.model, seqs, mode="fp32", logits_at=rows)
-    worst = max(float(ref.gaps(lg, t).max()) for lg, t in zip(logits, toks, strict=True))
+    arch = files.architecture(cell.model)
+    logits = arch.forward(params, cell.model, seqs, mode="fp32", logits_at=rows)
+    worst = max(float(gaps(lg, t).max()) for lg, t in zip(logits, toks, strict=True))
     return [Check("max_gap", worst, limit)]
 
 
@@ -277,5 +278,6 @@ def control(cell: Cell, rec: Record) -> list:
     as a served token is."""
     params, served = rec.inputs["params"], rec.inputs["served"]
     seqs, rows, _ = _teacher_forced(served, cell.device)
-    ref8 = ref.forward(params, cell.model, seqs, mode="fp8", logits_at=rows)
+    ref8 = files.architecture(cell.model).forward(params, cell.model, seqs, mode="fp8",
+                                                  logits_at=rows)
     return compare(cell, params, served, chosen=[lg.argmax(-1) for lg in ref8])

@@ -106,26 +106,11 @@ class Cell:
         self.log(self.beside.line())
 
     def port_config(self):
-        """The port's registry config, held to the file's published widths:
-        a run refuses a registry entry that differs from what the file
-        states."""
+        """The port's registry config, held to the file's published widths
+        by the architecture's ``port_check``: a run refuses a registry entry
+        that differs from what the file states."""
         from repro_torch.configs import get_config
 
-        from perfbench.lib.weights import dims
-
         cfg = get_config(self.model["registry"])
-        d = dims(self.model)
-        have = {"L": cfg.num_layers, "D": cfg.d_model, "N": cfg.num_heads,
-                "K": cfg.num_kv_heads, "hd": cfg.resolved_head_dim,
-                "F": cfg.moe_d_ff if cfg.moe else cfg.d_ff, "V": cfg.vocab_size,
-                "E": cfg.num_experts if cfg.moe else 0,
-                "k": cfg.experts_per_token if cfg.moe else 0, "qk_norm": cfg.qk_norm}
-        want = {key: d[key] for key in have}
-        if have != want:
-            raise SystemExit(f"{cfg.name}: the port's config {have} differs from "
-                             f"the configuration file's {want}")
-        if cfg.moe and cfg.moe_renormalize != bool(self.model.get("norm_topk_prob")):
-            raise SystemExit(f"{cfg.name}: the port renormalises top-k differently")
-        if float(cfg.rope_theta) != float(self.model["rope_theta"]):
-            raise SystemExit(f"{cfg.name}: rope_theta differs from the file")
+        files.architecture(self.model).port_check(self.model, cfg)
         return cfg

@@ -5,10 +5,10 @@ of its own, named after the name ``BENCHMARK.json`` gives it:
 
     perfbench/configs/<config>.json     perfbench/workloads/<cell>.json
     perfbench/traffic/<mix>.json        perfbench/metrics/<metric>.py
-    perfbench/drivers/<kind>.py
+    perfbench/drivers/<kind>.py         perfbench/reference/<architecture>.py
 
-so a later cell, configuration, mix or metric is a new file and a new entry,
-and no edit to the harness.
+so a later cell, configuration, mix, metric or architecture is a new file and
+a new entry, and no edit to the harness.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from types import ModuleType
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "perfbench"
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+MODULE = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")
+DECODER = "model"
 
 
 def _path(kind: str, name: str, suffix: str) -> Path:
@@ -59,3 +61,14 @@ def cell_metrics(bench: dict, cell: str, trace: bool) -> list:
     per-layer metrics traced. A metric without ``workloads`` is every cell's."""
     group = bench["per_layer"] if trace else bench["end_to_end"]
     return [m for m in group if cell in m.get("workloads", [cell])]
+
+
+def architecture(model: dict) -> ModuleType:
+    """The module that answers every architecture question about `model` (a
+    configuration file's contents): ``perfbench/reference/<name>.py`` for the
+    file's ``"architecture"`` key, the decoder (``reference/model.py``) where
+    it has none. ``perfbench/README.md`` lists what such a module provides."""
+    name = model.get("architecture", DECODER)
+    if not isinstance(name, str) or not MODULE.match(name):
+        raise ValueError(f"architecture {name!r} is not a module name")
+    return importlib.import_module(f"perfbench.reference.{name}")

@@ -1,6 +1,6 @@
-"""table_entries_step (entries): page entries ``hot_table`` visits to build a
-step's block tables (``entries`` on ``engine.tables``: the pool's held pages,
-once a row); ``lib/program_spans.py`` says over what steps."""
+"""table_entries_step (entries): the pages the step's batch holds, in either
+tier (``entries`` on ``engine.tables``: ``hot_tables`` counts each row's
+pages once a table); ``lib/program_spans.py`` says over what steps."""
 
 from perfbench.lib.program_spans import per_step
 

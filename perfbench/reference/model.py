@@ -1,112 +1,89 @@
-"""Plain PyTorch reference of the served decoders (dense, and MoE with top-k of
-the router's softmax), for the comparison that decides ``correct``.
+"""The decoder: the reference of the served decoders (dense, and MoE with
+top-k of the router's softmax), and everything else the harness asks of
+this architecture. ``files.architecture`` returns this module for a
+configuration file without an ``"architecture"`` key.
 
-It reads the configuration file and the benchmark's own weight tree (the
-layout of ``lib/weights.py``), never anything of the program, and computes
-one layer at a time: each layer's weights are raised from their served dtype
-to the compute precision, used by every sequence, and dropped, so the
-reference fits beside the served weights on the card.
-
-Precisions (``mode``):
-  * ``fp32``: float32 with TF32 off, the reference the program is held to;
-  * ``fp64``: float64, for the CPU checks of the fp32 path;
-  * ``fp8``: the control, every matmul's operands rounded to float8 e4m3
-    (activations a scale a row, weights a scale an output column) and
-    multiplied in float32: the step below the configuration's bf16.
+The reference reads the configuration file and the benchmark's own weight
+tree (``layout`` below), never anything of the program, and computes one
+layer at a time: each layer's weights are raised from their served dtype to
+the compute precision, used by every sequence, and dropped, so the reference
+fits beside the served weights on the card. Its precisions are
+``common.Precision``'s.
 
 The architecture as the port runs it (``as_run`` in the configuration file):
 pre-norm blocks, RMSNorm as ``x * rsqrt(mean(x^2) + eps) * (1 + scale)``,
 RoPE rotating the two halves of a head, optional RMSNorm of each head of q
 and k before RoPE, causal grouped-query attention, a SwiGLU MLP or a MoE of
 SwiGLU experts, final norm, an untied unembedding over the published vocab.
+Every layer runs attention.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, Optional, Sequence
+import copy
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
-E4M3_MAX = 448.0
-Q_BLOCK = 1024
-
-
-@contextlib.contextmanager
-def exact_fp32():
-    """TF32 off for every float32 product inside."""
-    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+from perfbench.reference.common import (DTYPES, Precision, _attention, _rms, _rope, _swiglu,
+                                       exact_fp32)
 
 
-def _to_e4m3(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """`x` rounded to float8 e4m3 with one scale along `dim`, back in x's dtype."""
-    amax = x.abs().amax(dim=dim, keepdim=True).clamp_min(1e-30)
-    scale = amax / E4M3_MAX
-    return (x / scale).to(torch.float8_e4m3fn).to(x.dtype) * scale
+def dims(model: dict) -> dict:
+    """The sizes the layout and the counts need, from a configuration file."""
+    D, N = model["hidden_size"], model["num_attention_heads"]
+    V = model["vocab_size"]
+    return {
+        "L": model["num_hidden_layers"], "D": D, "N": N,
+        "K": model["num_key_value_heads"], "hd": model.get("head_dim", D // N),
+        "F": model["intermediate_size"], "V": V, "Vp": -(-V // 256) * 256,
+        "E": model.get("num_experts", 0), "k": model.get("num_experts_per_tok", 0),
+        "qk_norm": bool(model.get("qk_norm", False)),
+    }
 
 
-class Precision:
-    def __init__(self, mode: str):
-        if mode not in ("fp32", "fp64", "fp8"):
-            raise ValueError(f"unknown precision {mode!r}")
-        self.mode = mode
-        self.dtype = torch.float64 if mode == "fp64" else torch.float32
-
-    def weight(self, w: torch.Tensor) -> torch.Tensor:
-        """A (in, out) weight in compute precision; under fp8 rounded with
-        one scale per output column."""
-        w = w.to(self.dtype)
-        return _to_e4m3(w, 0) if self.mode == "fp8" else w
-
-    def act(self, x: torch.Tensor) -> torch.Tensor:
-        """A matmul's activation operand (rows are tokens)."""
-        return _to_e4m3(x, -1) if self.mode == "fp8" else x
+def attention_layers(model: dict) -> List[int]:
+    """The layers that run attention, in order: every one. The n-th of them
+    is the program's ``caches["kv"][n]``."""
+    return list(range(model["num_hidden_layers"]))
 
 
-def _rms(x, scale, eps):
-    return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * (1.0 + scale.to(x.dtype))
+def layout(model: dict) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Dotted leaf name -> (shape, dtype), in draw order: the tree that
+    ``repro_torch.models.transformer`` reads."""
+    d = dims(model)
+    L, D, N, K, hd, F, E = d["L"], d["D"], d["N"], d["K"], d["hd"], d["F"], d["E"]
+    dt = DTYPES[model["torch_dtype"]]
+    out = {
+        "embed": ((d["Vp"], D), dt),
+        "stack.ln1": ((L, D), dt),
+        "stack.ln2": ((L, D), dt),
+        "stack.attn.wq": ((L, D, N, hd), dt),
+        "stack.attn.wk": ((L, D, K, hd), dt),
+        "stack.attn.wv": ((L, D, K, hd), dt),
+        "stack.attn.wo": ((L, N, hd, D), dt),
+    }
+    if d["qk_norm"]:
+        out["stack.attn.q_norm"] = ((L, hd), dt)
+        out["stack.attn.k_norm"] = ((L, hd), dt)
+    if E:
+        out["stack.moe.router"] = ((L, D, E), torch.float32)
+        out["stack.moe.w_gate"] = ((L, E, D, F), dt)
+        out["stack.moe.w_up"] = ((L, E, D, F), dt)
+        out["stack.moe.w_down"] = ((L, E, F, D), dt)
+    else:
+        out["stack.mlp.w_gate"] = ((L, D, F), dt)
+        out["stack.mlp.w_up"] = ((L, D, F), dt)
+        out["stack.mlp.w_down"] = ((L, F, D), dt)
+    out["final_norm"] = ((D,), dt)
+    out["unembed"] = ((D, d["Vp"]), dt)
+    return out
 
 
-def _rope(x, theta):
-    """x (S, H, hd) at positions 0..S-1: the two halves rotated."""
-    S, _, hd = x.shape
-    freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=x.dtype, device=x.device) / hd))
-    ang = torch.arange(S, dtype=x.dtype, device=x.device)[:, None] * freqs
-    sin, cos = torch.sin(ang)[:, None, :], torch.cos(ang)[:, None, :]
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def _attention(q, k, v):
-    """Causal GQA over one sequence: q (S, N, hd), k and v (S, K, hd)."""
-    S, N, hd = q.shape
-    K = k.shape[1]
-    G = N // K
-    qg = q.reshape(S, K, G, hd).permute(1, 2, 0, 3)             # (K, G, S, hd)
-    kt = k.permute(1, 2, 0)                                     # (K, hd, S)
-    vt = v.permute(1, 0, 2)                                     # (K, S, hd)
-    out = torch.empty_like(qg)
-    keys = torch.arange(S, device=q.device)
-    for a in range(0, S, Q_BLOCK):
-        b = min(S, a + Q_BLOCK)
-        s = (qg[:, :, a:b] @ kt[:, None]) * hd ** -0.5            # (K, G, rows, S)
-        mask = keys[None, :] > torch.arange(a, b, device=q.device)[:, None]
-        s = s.masked_fill(mask, float("-inf"))
-        out[:, :, a:b] = torch.softmax(s, dim=-1) @ vt[:, None]
-    return out.permute(2, 0, 1, 3).reshape(S, N * hd)
-
-
-def _swiglu(x, wg, wu, wd, prec: Precision):
-    xa = prec.act(x)
-    h = F.silu(xa @ wg) * (xa @ wu)
-    return prec.act(h) @ wd
+def is_norm(name: str) -> bool:
+    """A norm's scale, drawn as zero: the port's ``1 + scale`` gain of 1."""
+    return name.rsplit(".", 1)[-1] in ("ln1", "ln2", "q_norm", "k_norm", "final_norm")
 
 
 def _moe(x, lw, model, prec: Precision):
@@ -195,13 +172,69 @@ def forward(weights: dict, model: dict, seqs: Sequence[torch.Tensor], *,
         return out
 
 
-def gaps(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """How far each token's logit lies below its row's best, (rows,)."""
-    best = logits.max(dim=-1).values
-    return best - logits.gather(-1, tokens.long()[:, None])[:, 0]
+def matmul_params(model: dict) -> int:
+    """Weights a token multiplies through in the layers, per token: the
+    attention projections, the MLP or the routed experts and the router."""
+    d = dims(model)
+    D, N, K, hd, F = d["D"], d["N"], d["K"], d["hd"], d["F"]
+    attn = D * N * hd + 2 * D * K * hd + N * hd * D
+    ffn = d["k"] * 3 * D * F + D * d["E"] if d["E"] else 3 * D * F
+    return d["L"] * (attn + ffn)
 
 
-def relative(a: torch.Tensor, ref: torch.Tensor) -> float:
-    """||a - ref|| / ||ref||, in float64."""
-    a, ref = a.double(), ref.double()
-    return float(torch.linalg.vector_norm(a - ref) / torch.linalg.vector_norm(ref))
+def attention_pair_flops(model: dict) -> int:
+    """Flops of one (query, key) pair over every head and layer: q.k and p.v,
+    2 * hd each a head."""
+    d = dims(model)
+    return d["L"] * 4 * d["N"] * d["hd"]
+
+
+def port_check(model: dict, cfg) -> None:
+    """Hold the port's registry config `cfg` to the file's published widths:
+    a run refuses a registry entry that differs from what the file states."""
+    d = dims(model)
+    have = {"L": cfg.num_layers, "D": cfg.d_model, "N": cfg.num_heads,
+            "K": cfg.num_kv_heads, "hd": cfg.resolved_head_dim,
+            "F": cfg.moe_d_ff if cfg.moe else cfg.d_ff, "V": cfg.vocab_size,
+            "E": cfg.num_experts if cfg.moe else 0,
+            "k": cfg.experts_per_token if cfg.moe else 0, "qk_norm": cfg.qk_norm}
+    want = {key: d[key] for key in have}
+    if have != want:
+        raise SystemExit(f"{cfg.name}: the port's config {have} differs from "
+                         f"the configuration file's {want}")
+    if cfg.moe and cfg.moe_renormalize != bool(model.get("norm_topk_prob")):
+        raise SystemExit(f"{cfg.name}: the port renormalises top-k differently")
+    if float(cfg.rope_theta) != float(model["rope_theta"]):
+        raise SystemExit(f"{cfg.name}: rope_theta differs from the file")
+
+
+TINY = {"hidden_size": 64, "num_attention_heads": 4, "head_dim": 16,
+        "num_hidden_layers": 2, "intermediate_size": 96, "vocab_size": 256,
+        "torch_dtype": "float32"}
+TINY_MOE = {"num_experts": 8, "num_experts_per_tok": 2}
+
+
+def tiny_model(model: dict, **sizes) -> dict:
+    """`model` with every width cut to a few dozen, for the CPU checks;
+    `sizes` override TINY's keys."""
+    m = copy.deepcopy(model)
+    m.update(TINY, **sizes)
+    m["num_key_value_heads"] = 2 if model["num_key_value_heads"] < model["num_attention_heads"] \
+        else TINY["num_attention_heads"]
+    if "num_experts" in m:
+        m.update(TINY_MOE)
+    m["assumed"]["weights"]["std"] = 0.2
+    return m
+
+
+def tiny_port(model: dict, cfg) -> dict:
+    """The fields of the port's registry config `cfg` to replace so that it
+    runs `model`'s tiny widths (``dataclasses.replace(cfg, **tiny_port(...))``)."""
+    kw = dict(num_layers=model["num_hidden_layers"], d_model=model["hidden_size"],
+              num_heads=model["num_attention_heads"], num_kv_heads=model["num_key_value_heads"],
+              head_dim=model["head_dim"], d_ff=model["intermediate_size"],
+              vocab_size=model["vocab_size"], dtype="float32", param_dtype="float32")
+    if cfg.moe:
+        kw.update(moe_d_ff=model["intermediate_size"], num_experts=model["num_experts"],
+                  experts_per_token=model["num_experts_per_tok"])
+    return kw

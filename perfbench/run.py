@@ -8,9 +8,9 @@ the program (``src/repro_torch``) from the seed, warms it up, measures for
 ``--seconds`` and prints, as the last line of standard output, one JSON
 object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics untraced, its per-layer metrics with ``--trace 1``),
-``device`` and ``breakdown`` when traced. Every number the comparison with the
-reference decided by is printed beside its limit as the last lines of
-standard error.
+``device``, ``breakdown`` when traced, and last ``checks``: every number the
+comparison with the reference decided by, beside its limit, which are also
+the last lines of standard error.
 
 It exits non-zero and prints no result where there is no card or fewer
 cards than the cell asks for, where the program is absent, and where JAX or
@@ -126,6 +126,9 @@ def main(argv=None) -> int:
               "metrics": metrics, "device": device_info(chips, rec, bool(args.trace))}
     if args.trace and rec.profile is not None:
         result["breakdown"] = breakdown(rec.profile)
+    # last: each number compared, beside its limit (None where there was no number)
+    result["checks"] = {c.name: {"value": c.value if c.value == c.value else None,
+                                 "limit": c.limit} for c in rec.checks}
     for c in rec.checks:
         print(f"check {c.name}: {c.value!r} limit {c.limit!r} "
               f"{'ok' if c.ok else 'FAILED'}", file=sys.stderr)
