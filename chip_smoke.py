@@ -296,14 +296,14 @@ def card():
     return smi
 
 
-# The instantiations the prefill paths launch (bf16, zamba2's chunk 32 and
-# P = N = 64; rwkv6-3b's chunk 16 and K = V = 64; flash attention's wgmma
-# kernel at each head dim), by their mangled names.
+# The instantiations the prefill paths launch (bf16; zamba2's chunk 32 and
+# P = N = 64, granite-4.0-h's N 128; rwkv6-3b's chunk 16 and K = V = 64; flash
+# attention's wgmma kernel at each head dim), by their mangled names.
 PATH_ENTRIES = {
     "flash_attention": tuple(f"flash_attention_wgmma_kernelILi{hd}E"
                              for hd in (32, 64, 80, 128, 192, 256)),
-    "mamba2_ssd": ("ssd_chunk_kernelILi32E13__nv_bfloat16", "ssd_state_kernel",
-                   "ssd_output_kernelILi32E13__nv_bfloat16"),
+    "mamba2_ssd": (*(f"ssd_{p}_kernelILi32E13__nv_bfloat16Li{n}E"
+                     for p in ("chunk", "output") for n in (64, 128)), "ssd_state_kernel"),
     "rwkv6_scan": ("wkv6_step_kernelILi64E13__nv_bfloat16", "wkv6_state_kernel",
                    "wkv6_output_kernelILi16ELi64ELi1E13__nv_bfloat16"),
 }
@@ -740,6 +740,7 @@ FLASH_ONE_CARD = {"deepseek": ((2, 2048, 56, 8, 128), WINDOW_GLOBAL),
 FLASH_WIDE = {"hubert_hd80": ((2, 2048, 16, 16, 80), WINDOW_GLOBAL, False),
               "nemotron_hd192": ((1, 2048, 96, 8, 192), WINDOW_GLOBAL, True)}
 SSD_PATH = (2, 2048, 64, 64, 64)     # zamba2-1.2b: B, T, H, P, N at chunk 32
+SSD_GRANITE = (1, 4096, 128, 64, 128)   # granite-4.0-h-small's prefill cell, chunk 32
 WKV_PATH = (2, 2048, 40, 64, 64)     # rwkv6-3b: B, T, H, K, V at chunk 16
 
 
@@ -821,8 +822,10 @@ def flash_vs_plain():
 
 def ssd_vs_plain():
     """Max |kernel - plain| of y and the final state: the reference's sweep
-    against the step-by-step oracle, the path shape against the plain chunked
-    form (both fp32 arithmetic; atol 5e-4, the reference's)."""
+    and an edge of the instantiation for states up to 128 (ragged T, N 128)
+    against the step-by-step oracle, zamba2's and granite's path shapes
+    against the plain chunked form (both fp32 arithmetic; atol 5e-4, the
+    reference's)."""
     phase("mamba2 ssd: kernel vs plain version")
     from repro_torch.kernels.mamba2_ssd.ops import _ssd_chunked, ssd
     from repro_torch.kernels.mamba2_ssd.ref import ssd_ref
@@ -830,8 +833,9 @@ def ssd_vs_plain():
     cases = [((2, 64, 2, 16, 8), 16, torch.float32, ssd_ref),
              ((1, 45, 4, 8, 16), 16, torch.float32, ssd_ref),
              ((1, 45, 4, 8, 16), 16, torch.bfloat16, ssd_ref),
-             (SSD_PATH, 32, torch.bfloat16,
-              lambda *a: _ssd_chunked(*a, chunk=32))]
+             ((1, 77, 3, 64, 128), 32, torch.bfloat16, ssd_ref),
+             *((shape, 32, torch.bfloat16, lambda *a: _ssd_chunked(*a, chunk=32))
+               for shape in (SSD_PATH, SSD_GRANITE))]
     worst = 0.0
     for i, (shape, chunk, dtype, plain) in enumerate(cases):
         args = ssd_inputs(*shape, dtype, seed=100 + i)
@@ -1477,12 +1481,14 @@ def moe_breakdown(tf, moe_mod, params, cfg, prefill, busy_us, by_name) -> None:
     for xl, router_w, w_gate, w_up, w_down, cfg_, e_lo, e_local, capacity in captured:
         top_p, top_e, _ = moe_mod._route(router_w, xl, cfg_)
         sel_t, _, sizes = moe_mod._dispatch(top_p, top_e, cfg_, e_lo, e_local, capacity)
-        groups.append((xl[sel_t], w_gate, w_up, w_down, sizes))
+        every_row = (e_local == cfg_.num_experts
+                     and capacity <= xl.shape[0] * cfg_.experts_per_token)
+        groups.append(((xl[sel_t], w_gate, w_up, w_down, sizes), every_row))
     layers = len(captured)
 
     def products():
-        for g in groups:
-            moe_mod._grouped_ffn(*g)
+        for g, every_row in groups:
+            moe_mod._grouped_ffn(*g, every_row=every_row)
 
     def passes():
         for args in captured:
@@ -1490,22 +1496,20 @@ def moe_breakdown(tf, moe_mod, params, cfg, prefill, busy_us, by_name) -> None:
 
     products()
     passes()
-    prod_us, _, _ = profiled(products, f"{layers} x the grouped expert products, alone")
+    prod_us, prod_by_name, _ = profiled(products, f"{layers} x the grouped expert products, "
+                                                  "alone")
     pass_us, _, _ = profiled(passes, f"{layers} x the routed MoE pass, alone")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     products()
     torch.cuda.synchronize()
     prod_wall = (time.perf_counter() - t0) * 1e3
-    sizes = groups[0][4]
-    copy_us = host_us(lambda: sizes.tolist())
-    matmuls = sum(3 * int((g[4] > 0).sum()) for g in groups)
+    launches = sum(count for _, count in prod_by_name.values())
     flash_us = sum(t for name, (t, _) in by_name.items() if "flash_attention" in name)
     print(f"moe: grouped expert products {prod_us / layers / 1e3:.4f} ms of device time a "
-          f"layer ({matmuls} torch.matmul launches a forward, {prod_wall / layers:.4f} ms "
-          f"of wall time a layer run alone); routing, sort and scatter "
-          f"{(pass_us - prod_us) / layers / 1e3:.4f} ms a layer; group sizes' "
-          f"device-to-host copy {copy_us:.1f} us on the host, once a layer")
+          f"layer ({launches} kernel launches a forward, as profiled, "
+          f"{prod_wall / layers:.4f} ms of wall time a layer run alone); routing, sort and "
+          f"scatter {(pass_us - prod_us) / layers / 1e3:.4f} ms a layer")
     if busy_us:
         print(f"moe: shares of one forward's {busy_us / 1e3:.2f} ms of device time: expert "
               f"products {prod_us / busy_us:.1%}, routing/sort/scatter "

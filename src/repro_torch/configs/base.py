@@ -46,7 +46,7 @@ SHAPES: Dict[str, ShapeConfig] = {
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    family: str                      # dense | moe | ssm | hybrid | hybrid_moe | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -66,6 +66,15 @@ class ArchConfig:
     scale_embedding: bool = False    # gemma: embed * sqrt(d_model)
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
+    use_rope: bool = True            # False: no position embedding (granite's NoPE)
+    rms_norm_eps: float = 1e-6       # hybrid_moe's norms and final norm
+    # granite's multipliers: embeddings times embedding_multiplier, each
+    # sub-block's output times residual_multiplier, attention scores times
+    # attention_multiplier (0: head_dim ** -0.5), logits over logits_scaling
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
 
     # -- MoE ------------------------------------------------------------------------
     moe: bool = False
@@ -84,6 +93,7 @@ class ArchConfig:
     ssm_conv: int = 4
     ssm_head_dim: int = 64
     ssm_attn_every: int = 0          # zamba2: shared attn block every k ssm layers
+    attention_layers: Tuple[int, ...] = ()   # hybrid_moe: the layers that run attention
     rwkv_head_dim: int = 64
     rwkv_decay_lora: int = 64
 
@@ -138,6 +148,14 @@ class ArchConfig:
             d_in = self.ssm_expand * D
             per_layer += D * (2 * d_in + 2 * self.ssm_state) + d_in * D + d_in
             total += D * N * hd + 2 * D * K * hd + N * hd * D + mlp_mats * D * F
+        elif self.family == "hybrid_moe":  # a Mamba2 or an attention mixer a layer
+            d_in, N_s = self.ssm_expand * D, self.ssm_state
+            H, conv_dim = d_in // self.ssm_head_dim, d_in + 2 * self.ssm_state
+            mamba = (D * (2 * d_in + 2 * N_s + H) + (self.ssm_conv + 1) * conv_dim
+                     + 3 * H + d_in + d_in * D)
+            n_attn = len(self.attention_layers)
+            total += (n_attn * (D * N * hd + 2 * D * K * hd + N * hd * D)
+                      + (L - n_attn) * mamba)
         if self.moe:
             ff_dense = mlp_mats * D * F
             ff_exp = self.num_experts * 3 * D * self.moe_d_ff
@@ -145,7 +163,7 @@ class ArchConfig:
             router = D * self.num_experts
             n_moe = L - self.moe_first_dense
             total += self.moe_first_dense * ff_dense + n_moe * (ff_exp + ff_shared + router)
-        elif self.family not in ("ssm", "hybrid"):
+        elif self.family not in ("ssm", "hybrid", "hybrid_moe"):
             per_layer += mlp_mats * D * F
         total += L * per_layer + L * 2 * D + D  # norms
         return total
@@ -185,6 +203,8 @@ class ArchConfig:
             kw.update(rwkv_head_dim=32, rwkv_decay_lora=16)
         if self.ssm_attn_every:
             kw.update(ssm_attn_every=2)
+        if self.family == "hybrid_moe":   # two Mamba2 layers around one attention layer
+            kw.update(num_layers=3, attention_layers=(1,))
         if self.global_every:
             kw.update(global_every=2, sliding_window=8)
         elif self.sliding_window:

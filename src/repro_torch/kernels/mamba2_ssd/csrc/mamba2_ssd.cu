@@ -38,16 +38,23 @@
 //   written once.
 // Products run on the CUDA cores in fp32 from registers: each thread of pass
 // 1 owns a 4 x 4 tile of dH (a 16-byte shared read of x and of B feeds 16
-// products), each thread of pass 3 four columns of (c / 8) rows of y, rows
-// t = tg + 8 i, so that a warp reads eight distinct rows of C and of the
-// scores and four of x and of the state at once. Rows of the B, C, state and
-// score tiles are padded by four words, so that those reads fall in distinct
-// banks. L is scanned and differenced in fp64, in passes 1 and 3 alike, and
-// only its differences are rounded to fp32: with large dt (hundreds, in
-// zamba2-1.2b with random weights; chip_smoke.py prints the largest) |L|
-// grows past 1e4 within a chunk, the fp32 difference of two nearby positions
-// loses most of its digits, and exp() turns that into relative errors of
-// ~1e-3 in y and the state. Every exponent is <= 0.
+// products; two tiles at N > 64), each thread of pass 3 four columns of
+// (c / 8) rows of y, rows t = tg + 8 i, so that a warp reads eight distinct
+// rows of C and of the scores and four of x and of the state at once. Rows of
+// the B, C, state and score tiles are padded by four words, so that those
+// reads fall in distinct banks. L is scanned and differenced in fp64, in
+// passes 1 and 3 alike, and only its differences are rounded to fp32: with
+// large dt (hundreds, in zamba2-1.2b with random weights; chip_smoke.py
+// prints the largest) |L| grows past 1e4 within a chunk, the fp32 difference
+// of two nearby positions loses most of its digits, and exp() turns that into
+// relative errors of ~1e-3 in y and the state. Every exponent is <= 0.
+//
+// Widths: P (the head dim) up to 64 and N (the state) up to 128, multiples of
+// 4. Each kernel is instantiated for N <= 64 (zamba2-1.2b's 64) and for N <=
+// 128 (granite-4.0-h's 128), which sizes the B and C tiles' registers and
+// pass 1's tiles a thread; at N 128 and P 64, chunk 32, pass 3 takes 96 KB of
+// shared memory a block (two blocks an SM) and pass 2's dH scratch is 32 KB
+// a (b, head, chunk): 4.3 GB at granite's 128 heads over 32k tokens.
 //
 // Bound. By operations, per (b, head, chunk): c (c + 1) P (intra-chunk y over
 // the causal pairs) + 2 c P N (y from the state) + 2 c P N (dH), and per
@@ -68,9 +75,10 @@
 
 namespace {
 
-constexpr int kThreads1 = 256;   // pass 1: a thread per 4 x 4 tile of dH (P, N <= 64)
+constexpr int kThreads1 = 256;   // pass 1: a thread per 4 x 4 tile of dH (two at N > 64)
 constexpr int kThreads3 = 128;   // pass 3: 8 row groups x 16 column groups of y
-constexpr int kMaxWidth = 64;
+constexpr int kMaxHeadDim = 64;  // P
+constexpr int kMaxState = 128;   // N
 constexpr int kHeads = 4;        // heads a block of pass 1 or 3 walks, sharing B, C and C B^T
 constexpr int kSegs = 8;         // pass 2: warps a block, each a segment of the chunks
 constexpr int kSegLen = 8;       // chunks a segment, loaded at once
@@ -113,13 +121,13 @@ struct Vec4<__nv_bfloat16> {
   }
 };
 
-// Rows [c0, c0 + CH) of a (T, row_stride) matrix of T, W <= 64 columns (a
+// Rows [c0, c0 + CH) of a (T, row_stride) matrix of T, W <= WMAX columns (a
 // multiple of 4), held in registers four elements a load; rows at or past T
 // are 0. A block issues the loads of all its tiles before it stores any to
 // shared memory, so it waits out one memory latency and not one per tile.
-template <typename T, int CH, int NT>
+template <typename T, int CH, int NT, int WMAX>
 struct RowTile {
-  static constexpr int kMax = (CH * 16 + NT - 1) / NT;   // loads a thread, at W = 64
+  static constexpr int kMax = (CH * (WMAX / 4) + NT - 1) / NT;   // loads a thread, at W = WMAX
   typename Vec4<T>::type v[kMax];
 
   __device__ void load(const T* src, long long row_stride, int c0, int W, int T_len, int tid) {
@@ -199,8 +207,8 @@ __device__ __forceinline__ void chunk_cb(float* __restrict__ out, const float* c
 
 // Pass 1: chunk blockIdx.x of heads kHeads * blockIdx.y .. of sequence
 // blockIdx.z. The B tile is loaded once for the block's heads; the next
-// head's x and dt are loaded while this head's dH is computed.
-template <int CH, typename T>
+// head's x and dt are loaded while this head's dH is computed. N <= NMAX.
+template <int CH, typename T, int NMAX>
 __global__ void __launch_bounds__(kThreads1) ssd_chunk_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
     const T* __restrict__ Bm, const T* __restrict__ C, float* __restrict__ dH,
@@ -222,7 +230,7 @@ __global__ void __launch_bounds__(kThreads1) ssd_chunk_kernel(
   const float* dtb = dt + static_cast<long long>(b) * T_len * H;
   const bool dt_live = tid < CH && c0 + tid < T_len;
 
-  RowTile<T, CH, kThreads1> xt;
+  RowTile<T, CH, kThreads1, kMaxHeadDim> xt;
   float dtv;
   auto fetch = [&](int h) {
     dtv = dt_live ? dtb[static_cast<long long>(c0 + tid) * H + h] : 0.f;
@@ -230,7 +238,7 @@ __global__ void __launch_bounds__(kThreads1) ssd_chunk_kernel(
   };
   fetch(h0);
   {
-    RowTile<T, CH, kThreads1> bt, ct;
+    RowTile<T, CH, kThreads1, NMAX> bt, ct;
     bt.load(Bm + static_cast<long long>(b) * T_len * N, N, c0, N, T_len, tid);
     if (h0 == 0) ct.load(C + static_cast<long long>(b) * T_len * N, N, c0, N, T_len, tid);
     bt.store(b_s, ns, N, tid);
@@ -243,7 +251,6 @@ __global__ void __launch_bounds__(kThreads1) ssd_chunk_kernel(
   }
 
   const int NG = N / 4;
-  const int ng = tid % NG, pg = tid / NG;
   for (int h = h0; h < h1; ++h) {
     if (tid < 32) {   // warp 0 holds the chunk's dt
       const double L = scan_L(dtv, CH, static_cast<double>(A[h]), tid);
@@ -257,8 +264,13 @@ __global__ void __launch_bounds__(kThreads1) ssd_chunk_kernel(
     __syncthreads();
     if (h + 1 < h1) fetch(h + 1);   // in flight while this head computes
 
-    // dH = (x w)^T B: a 4 x 4 tile a thread, rows 4 pg .., columns 4 ng ..
-    if (pg < P / 4) {
+    // dH = (x w)^T B: a 4 x 4 tile a thread (NMAX / 64 of them), rows 4 pg ..,
+    // columns 4 ng ..
+#pragma unroll
+    for (int r = 0; r < NMAX / 64; ++r) {
+      const int tile = tid + r * kThreads1;
+      const int ng = tile % NG, pg = tile / NG;
+      if (pg >= P / 4) break;
       float acc[4][4] = {};
 #pragma unroll 4
       for (int s = 0; s < CH; ++s) {
@@ -381,8 +393,8 @@ __device__ __forceinline__ void copy_state(float* dst, const float* src, int P, 
 // Pass 3: chunk blockIdx.x of heads kHeads * blockIdx.y .. of sequence
 // blockIdx.z. The C tile and C B^T are loaded once for the block's heads;
 // the next head's state comes by cp.async, and its x and dt into registers,
-// while this head's y is computed.
-template <int CH, typename T>
+// while this head's y is computed. N <= NMAX.
+template <int CH, typename T, int NMAX>
 __global__ void __launch_bounds__(kThreads3, 4) ssd_output_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
     const T* __restrict__ C, const float* __restrict__ D, const float* __restrict__ h_prev,
@@ -418,7 +430,7 @@ __global__ void __launch_bounds__(kThreads3, 4) ssd_output_kernel(
     ad_s[tid] = A[h0 + tid];
     ad_s[kHeads + tid] = D[h0 + tid];
   }
-  RowTile<T, CH, kThreads3> xt;
+  RowTile<T, CH, kThreads3, kMaxHeadDim> xt;
   float dtv;
   auto fetch = [&](int h) {
     dtv = dt_live ? dtb[static_cast<long long>(c0 + tid) * H + h] : 0.f;
@@ -427,7 +439,7 @@ __global__ void __launch_bounds__(kThreads3, 4) ssd_output_kernel(
   fetch(h0);
   float cbv[kPairs];   // this thread's pairs tid + k kThreads3 of C B^T, for every head
   {
-    RowTile<T, CH, kThreads3> ct;
+    RowTile<T, CH, kThreads3, NMAX> ct;
     ct.load(C + static_cast<long long>(b) * T_len * N, N, c0, N, T_len, tid);
     const float* cbp = cb + (static_cast<long long>(b) * nc + n) * CH * CH;
 #pragma unroll
@@ -527,23 +539,23 @@ __global__ void __launch_bounds__(kThreads3, 4) ssd_output_kernel(
   }
 }
 
-template <int CH, typename T>
+template <int CH, typename T, int NMAX>
 cudaError_t launch(const void* x, const void* dt, const void* A, const void* Bm, const void* C,
                    const void* D, const void* state, void* y, void* state_out, void* dH,
                    void* a_last, void* cb, int B, int T_len, int H, int P, int N,
                    cudaStream_t stream) {
   const size_t bytes1 = chunk_smem_bytes(P, N, CH);
   const size_t bytes3 = output_smem_bytes(P, N, CH);
-  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_kernel<CH, T>,
+  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_kernel<CH, T, NMAX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes1));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ssd_output_kernel<CH, T>,
+  err = cudaFuncSetAttribute(ssd_output_kernel<CH, T, NMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes3));
   if (err != cudaSuccess) return err;
   const int nc = (T_len + CH - 1) / CH;
   const dim3 grid(nc, (H + kHeads - 1) / kHeads, B);
-  ssd_chunk_kernel<CH, T><<<grid, kThreads1, bytes1, stream>>>(
+  ssd_chunk_kernel<CH, T, NMAX><<<grid, kThreads1, bytes1, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(Bm), static_cast<const T*>(C), static_cast<float*>(dH),
       static_cast<float*>(a_last), static_cast<float*>(cb), T_len, H, P, N);
@@ -556,22 +568,34 @@ cudaError_t launch(const void* x, const void* dt, const void* A, const void* Bm,
       static_cast<const float*>(state), static_cast<float*>(state_out), BH, PN4, nc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_output_kernel<CH, T><<<grid, kThreads3, bytes3, stream>>>(
+  ssd_output_kernel<CH, T, NMAX><<<grid, kThreads3, bytes3, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
       static_cast<const T*>(C), static_cast<const float*>(D), static_cast<const float*>(dH),
       static_cast<const float*>(cb), static_cast<float*>(y), T_len, H, P, N);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int NMAX>
 cudaError_t launch_chunk(int chunk, const void* x, const void* dt, const void* A, const void* Bm,
                          const void* C, const void* D, const void* state, void* y,
                          void* state_out, void* dH, void* a_last, void* cb, int B, int T_len,
                          int H, int P, int N, cudaStream_t s) {
-  return chunk == 16 ? launch<16, T>(x, dt, A, Bm, C, D, state, y, state_out, dH, a_last, cb, B,
-                                     T_len, H, P, N, s)
-                     : launch<32, T>(x, dt, A, Bm, C, D, state, y, state_out, dH, a_last, cb, B,
-                                     T_len, H, P, N, s);
+  return chunk == 16 ? launch<16, T, NMAX>(x, dt, A, Bm, C, D, state, y, state_out, dH, a_last,
+                                           cb, B, T_len, H, P, N, s)
+                     : launch<32, T, NMAX>(x, dt, A, Bm, C, D, state, y, state_out, dH, a_last,
+                                           cb, B, T_len, H, P, N, s);
+}
+
+// The instantiation for the state size: N <= 64 or N <= 128.
+template <typename T>
+cudaError_t launch_width(int chunk, const void* x, const void* dt, const void* A,
+                         const void* Bm, const void* C, const void* D, const void* state,
+                         void* y, void* state_out, void* dH, void* a_last, void* cb, int B,
+                         int T_len, int H, int P, int N, cudaStream_t s) {
+  return N <= 64 ? launch_chunk<T, 64>(chunk, x, dt, A, Bm, C, D, state, y, state_out, dH,
+                                       a_last, cb, B, T_len, H, P, N, s)
+                 : launch_chunk<T, kMaxState>(chunk, x, dt, A, Bm, C, D, state, y, state_out,
+                                              dH, a_last, cb, B, T_len, H, P, N, s);
 }
 
 }  // namespace
@@ -593,15 +617,15 @@ extern "C" int mamba2_ssd_fwd(const void* x, const void* dt, const void* A, cons
        reinterpret_cast<uintptr_t>(state_out) | reinterpret_cast<uintptr_t>(dH) |
        reinterpret_cast<uintptr_t>(cb)) % 16 == 0;
   const bool shape_ok = aligned && B > 0 && B <= 65535 && T > 0 && H > 0 && H <= 65535 &&
-                        P >= 4 && P <= kMaxWidth && P % 4 == 0 && N >= 4 &&
-                        N <= kMaxWidth && N % 4 == 0 && (chunk == 16 || chunk == 32);
+                        P >= 4 && P <= kMaxHeadDim && P % 4 == 0 && N >= 4 &&
+                        N <= kMaxState && N % 4 == 0 && (chunk == 16 || chunk == 32);
   if (!shape_ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();  // clear any earlier error so the result is this launch's
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_chunk<__nv_bfloat16>(chunk, x, dt, A, Bm, C, D, state, y, state_out, dH,
+      is_bf16 ? launch_width<__nv_bfloat16>(chunk, x, dt, A, Bm, C, D, state, y, state_out, dH,
                                             a_last, cb, B, T, H, P, N, s)
-              : launch_chunk<float>(chunk, x, dt, A, Bm, C, D, state, y, state_out, dH, a_last,
+              : launch_width<float>(chunk, x, dt, A, Bm, C, D, state, y, state_out, dH, a_last,
                                     cb, B, T, H, P, N, s);
   return static_cast<int>(err);
 }

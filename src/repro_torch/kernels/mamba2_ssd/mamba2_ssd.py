@@ -26,7 +26,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba2_ssd.cu"
 KERNEL = Kernel(SOURCE, "mamba2_ssd_fwd", [*[PTR] * 12, *[I32] * 6, I32, PTR])
 
 CHUNKS = (16, 32)      # the chunk lengths the kernel is instantiated for
-MAX_WIDTH = 64         # the largest head dim P and state size N; both multiples of 4
+MAX_HEAD_DIM = 64      # the largest head dim P, a multiple of 4
+MAX_STATE = 128        # the largest state size N, a multiple of 4
 
 launches = 0
 
@@ -34,6 +35,15 @@ launches = 0
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"ssd_pallas: {msg}")
+
+
+def check_widths(P: int, N: int) -> None:
+    """Raise ValueError unless the kernel takes head dim `P` and state size `N`:
+    multiples of 4, P up to MAX_HEAD_DIM, N up to MAX_STATE."""
+    _check(4 <= P <= MAX_HEAD_DIM and P % 4 == 0,
+           f"P={P}: the head dim must be a multiple of 4 in [4, {MAX_HEAD_DIM}]")
+    _check(4 <= N <= MAX_STATE and N % 4 == 0,
+           f"N={N}: the state size must be a multiple of 4 in [4, {MAX_STATE}]")
 
 
 def ssd_pallas(x, dt, A, Bm, C, D, state, *, chunk: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,8 +68,7 @@ def ssd_pallas(x, dt, A, Bm, C, D, state, *, chunk: int = 32) -> Tuple[torch.Ten
     _check(tuple(Bm.shape) == tuple(C.shape) == (B, T, N), "Bm and C must be (B, T, N)")
     _check(tuple(state.shape) == (B, H, P, N), f"state shape {tuple(state.shape)}")
     _check(chunk in CHUNKS, f"chunk {chunk} not in {CHUNKS}")
-    _check(all(4 <= n <= MAX_WIDTH and n % 4 == 0 for n in (P, N)),
-           f"P={P}, N={N}: each must be a multiple of 4 in [4, {MAX_WIDTH}]")
+    check_widths(P, N)
     _check(T >= 1 and B <= 65535 and H <= 65535, f"B={B}, T={T}, H={H}")
     _check(all(t.data_ptr() % 16 == 0 for t in (x, Bm, C, state)),
            "x, Bm, C and state must start on 16-byte boundaries")
@@ -67,7 +76,9 @@ def ssd_pallas(x, dt, A, Bm, C, D, state, *, chunk: int = 32) -> Tuple[torch.Ten
     y = torch.empty((B, T, H, P), dtype=torch.float32, device=x.device)
     h_out = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     # Pass 1 -> 2 -> 3: each chunk's own state contribution, overwritten by
-    # pass 2 with the state the chunk starts from; exp(L_last); C B^T per chunk.
+    # pass 2 with the state the chunk starts from (B H nc P N fp32: 4.3 GB at
+    # granite-4.0-h's 128 heads of 64, N 128, over 32k tokens); exp(L_last);
+    # C B^T per chunk.
     d_h = torch.empty((B, H, nc, P, N), dtype=torch.float32, device=x.device)
     a_last = torch.empty((B, H, nc), dtype=torch.float32, device=x.device)
     cb = torch.empty((B, nc, chunk, chunk), dtype=torch.float32, device=x.device)

@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd as _kernel
 from repro_torch.kernels.mamba2_ssd.ref import ssd_ref
 
@@ -74,6 +75,7 @@ def _ssd_chunked(x, dt, A, Bm, C, D, state, chunk: int) -> Tuple[torch.Tensor, t
 
 
 def ssd(x, dt, A, Bm, C, D, state, impl: str = "chunked", chunk: int = DEFAULT_CHUNK):
+    spans.count("ssd_tokens", x.shape[0] * x.shape[1])
     if impl == "ref":
         return ssd_ref(x, dt, A, Bm, C, D, state)
     if impl == "chunked" or (impl == "pallas" and x.device.type == "cpu"):

@@ -45,7 +45,7 @@ def build(args: argparse.Namespace) -> ServingEngine:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.family in ("ssm", "hybrid") or not cfg.causal:
+    if cfg.family in ("ssm", "hybrid", "hybrid_moe") or not cfg.causal:
         raise SystemExit(f"{args.arch}: paged serving demo targets attention archs")
     device = resolve_device(args.device)
 

@@ -55,8 +55,9 @@ def _project_qkv(p, x, positions, theta, qk_norm):
     if qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
+    if theta is not None:          # None: no position embedding (NoPE)
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
     # "seq" itself is deliberately unsharded here: under SP rules the sequence axis
     # is only sharded on the residual stream between blocks (Megatron-style).
     # "seq_attn" is the low-priority fallback: it claims the model axis only when
@@ -218,10 +219,11 @@ def full_attention(
     *,
     window: int,                  # >= S means full attention
     causal: bool,
-    theta: float,
+    theta: Optional[float],       # None: no RoPE
     qk_norm: bool,
     attn_impl: str = "xla",
     segment_positions: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,   # None: head_dim ** -0.5
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Training / prefill attention over the whole sequence. Returns (out, (k, v))."""
     B, S, D = x.shape
@@ -230,7 +232,8 @@ def full_attention(
         else torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     )
     q, k, v = _project_qkv(p, x, positions, theta, qk_norm)
-    scale = q.shape[-1] ** -0.5
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
 
     if attn_impl == "flash":
         # An encoder layer attends all-to-all whatever its window, as the

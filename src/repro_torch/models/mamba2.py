@@ -53,7 +53,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, prev: torch.
     S = x.shape[1]
     xp = torch.cat([prev, x], dim=1)                             # (B, S+k-1, C)
     out = sum(xp[:, i : i + S] * w[i][None, None] for i in range(k))
-    new_prev = xp[:, -(k - 1):] if k > 1 else torch.zeros_like(prev)
+    # a copy: a view of the last k-1 rows would keep all of xp alive in the
+    # caller's collected states (a (B, S, C) tensor a layer)
+    new_prev = xp[:, -(k - 1):].clone() if k > 1 else torch.zeros_like(prev)
     return F.silu(out + b[None, None]), new_prev
 
 
@@ -68,6 +70,7 @@ def mamba2_block(
     state: Dict[str, torch.Tensor],       # {"conv": (B,k-1,C), "ssd": (B,H,P,N)}
     cfg: ArchConfig,
     impl: str = "chunked",
+    eps: float = 1e-6,                    # the gated norm's
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     B, S, _ = x.shape
     d_in, P, H, N = _dims(cfg)
@@ -85,7 +88,7 @@ def mamba2_block(
 
     y, ssd_state = ssd(xh, dt, A, Bc, Cc, p["D"], state["ssd"], impl=impl)
     y = y.reshape(B, S, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
+    y = rms_norm(y * F.silu(z), p["norm"], eps)
     out = y @ p["out_proj"]
     return constrain(out, ("batch", "seq", "embed")), {"conv": conv_state, "ssd": ssd_state}
 

@@ -10,12 +10,14 @@ The port of ``repro/models/moe.py``:
             ``capacity`` (GShard-style drops), run the grouped product over the
             expert groups, and scatter-add the weighted outputs.
 
-``jax.lax.ragged_dot`` becomes ``_grouped_ffn``: the group offsets come to the
-host once a layer (one device-to-host copy of E integers) and a loop over the
-experts runs each expert's rows through ``torch.matmul``. Rows past the groups
-(assignments dropped by the capacity cut or owned by another shard) stay zero,
-as ``ragged_dot`` leaves them. It is a library product, as the reference left
-it to XLA: ``ragged_dot`` is no Pallas kernel.
+``jax.lax.ragged_dot`` becomes ``_grouped_ffn``: for bf16 on the card,
+``torch._grouped_mm`` with the group offsets on the device; otherwise the
+group offsets come to the host once a layer (one device-to-host copy of E
+integers) and a loop over the experts runs each expert's rows through
+``torch.matmul``. Rows past the groups (assignments dropped by the capacity
+cut or owned by another shard) are zero, as ``ragged_dot`` leaves them. It is
+a library product, as the reference left it to XLA: ``ragged_dot`` is no
+Pallas kernel.
 
 Under a mesh (an ``axis_rules`` context whose ``model`` extent ``ep > 1``
 divides the expert count) ``ep`` runs the reference's ``shard_map`` body on
@@ -36,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import (constrain, current_mesh, current_rules,
                                               global_out, local_in, shard_dims)
@@ -177,12 +180,34 @@ def _dispatch(top_p, top_e, cfg: ArchConfig, e_lo: int, e_local: int, capacity: 
     return sel_t, sel_p, group_sizes
 
 
-def _grouped_ffn(xe, w_gate, w_up, w_down, group_sizes):
+def _grouped_ffn(xe, w_gate, w_up, w_down, group_sizes, every_row: bool = False):
     """The expert FFN over grouped rows: rows [o_e, o_e + n_e) of xe (C, D)
     through expert e, as the reference's three ``ragged_dot``s. Rows past the
-    groups give zeros. One device-to-host copy of the group sizes a call."""
+    groups give zeros; ``every_row`` says the groups cover all C rows (one
+    shard, every assignment kept), so none is left to zero. bf16 CUDA tensors
+    take one grouped product a weight, ``torch._grouped_mm`` with the group
+    offsets on the device: no copy to the host and a few launches a layer,
+    where the loop takes six an expert, so the card sets the pace. The rest
+    (the CPU, fp32) take ``_looped_ffn``."""
+    if not (xe.is_cuda and xe.dtype == torch.bfloat16):
+        return _looped_ffn(xe, w_gate, w_up, w_down, group_sizes)
+    offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+    h = F.silu(torch._grouped_mm(xe, w_gate, offs=offs)) * torch._grouped_mm(
+        xe, w_up, offs=offs)
+    ye = torch._grouped_mm(h, w_down, offs=offs)
+    if every_row:
+        return ye
+    past = torch.arange(xe.shape[0], device=xe.device) >= offs[-1]
+    return ye.masked_fill_(past[:, None], 0)         # rows past the groups are not written
+
+
+def _looped_ffn(xe, w_gate, w_up, w_down, group_sizes):
+    """``_grouped_ffn`` as a loop over the experts through ``torch.matmul``,
+    with one device-to-host copy of the group sizes a call, counted as a
+    ``host_syncs`` on the open spans."""
     ye = torch.zeros((xe.shape[0], w_down.shape[-1]), dtype=xe.dtype, device=xe.device)
     start = 0
+    spans.count("host_syncs")
     for e, n in enumerate(group_sizes.tolist()):
         if n:
             xs = xe[start:start + n]
@@ -211,7 +236,10 @@ def _local_expert_pass(xl, router_w, w_gate, w_up, w_down, cfg: ArchConfig,
     if exact_flops:
         ye = _exact_ffn(xl[sel_t], w_gate, w_up, w_down)                 # (C, D)
     else:
-        ye = _grouped_ffn(xl[sel_t], w_gate, w_up, w_down, group_sizes)  # (C, D)
+        # every assignment is this shard's, and the first `capacity` of them are kept
+        every_row = e_local == cfg.num_experts and capacity <= T * cfg.experts_per_token
+        ye = _grouped_ffn(xl[sel_t], w_gate, w_up, w_down, group_sizes,   # (C, D)
+                          every_row=every_row)
     out = torch.zeros((T, D), dtype=ye.dtype, device=ye.device)
     out.index_add_(0, sel_t, ye * sel_p[:, None].to(ye.dtype))
     aux = _aux_loss(probs, top_e, cfg.num_experts)

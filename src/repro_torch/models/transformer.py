@@ -10,7 +10,10 @@ The port of ``repro/models/transformer.py`` for three kinds of model:
     every ``ssm_attn_every`` layers (weights shared across invocations, one KV
     cache per invocation);
   * ssm (rwkv6): RWKV6 blocks, attention-free, with an O(1) recurrent state
-    per layer.
+    per layer;
+  * hybrid_moe (granite-4.0-h): a mixer a layer, Mamba2 or NoPE GQA attention
+    (``cfg.attention_layers``), each followed by a MoE with a shared expert,
+    granite's multipliers on the embeddings, residual branches and logits.
 
 Parameters keep the reference's tree and its layer-stacked ``(L, ...)``
 layout, so ``repro_torch.interop.from_reference`` maps one tree onto the
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.offload import offload_checkpoint_policy, remat
 from repro_torch.device import resolve_device
@@ -125,6 +129,14 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Dict[st
     elif cfg.family == "hybrid":
         params["blocks"] = m2.init_mamba2(gen, L, cfg, dtype, dev)
         params["shared_attn"] = _init_attn_stack(gen, cfg, 1, False, dtype, dev)
+    elif cfg.family == "hybrid_moe":
+        n_attn = len(cfg.attention_layers)
+        params["stack"] = {"ln1": ll.zeros((L, D), dtype, dev),
+                           "ln2": ll.zeros((L, D), dtype, dev),
+                           "moe": moe_lib.init_moe(gen, L, cfg, dtype, dev)}
+        params["mamba"] = m2.init_mamba2(gen, L - n_attn, cfg, dtype, dev)
+        params["attn"] = attn.init_attention(gen, n_attn, D, cfg.num_heads, cfg.num_kv_heads,
+                                             cfg.resolved_head_dim, cfg.qk_norm, dtype, dev)
     else:
         L1 = _first_dense(cfg)
         if L1:
@@ -201,8 +213,8 @@ def param_axes(cfg: ArchConfig) -> Dict[str, Any]:
             "cv": ("layers", "ff", "fsdp"),
             "cr": ("layers", "fsdp", "heads_merged"),
         }
-    elif cfg.family == "hybrid":
-        axes["blocks"] = {
+    elif cfg.family in ("hybrid", "hybrid_moe"):
+        mamba = {
             "in_proj": ("layers", "fsdp", "heads_merged"),
             "conv_w": ("layers", None, "heads_merged"),
             "conv_b": ("layers", "heads_merged"),
@@ -212,7 +224,14 @@ def param_axes(cfg: ArchConfig) -> Dict[str, Any]:
             "norm": ("layers", "heads_merged"),
             "out_proj": ("layers", "heads_merged", "fsdp"),
         }
-        axes["shared_attn"] = _attn_stack_axes(cfg, use_moe=False)
+        if cfg.family == "hybrid":
+            axes["blocks"] = mamba
+            axes["shared_attn"] = _attn_stack_axes(cfg, use_moe=False)
+        else:
+            stack = _attn_stack_axes(cfg, use_moe=True)
+            axes["attn"] = stack.pop("attn")
+            axes["stack"] = stack
+            axes["mamba"] = mamba
     else:
         if cfg.moe and cfg.moe_first_dense:
             axes["dense_stack"] = _attn_stack_axes(cfg, use_moe=False)
@@ -254,14 +273,19 @@ def embed_inputs(params, cfg: ArchConfig, inputs: torch.Tensor) -> torch.Tensor:
         # The reference rounds sqrt(d_model) to the activation dtype before
         # multiplying (sqrt(1152) = 33.94 becomes 34.0 in bf16); so does this.
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype).item()
+    if cfg.embedding_multiplier != 1.0:
+        h = h * cfg.embedding_multiplier
     return constrain(h, ("batch", "seq", "embed"))
 
 
 def unembed(params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """Final norm + vocab projection; padded vocab entries are masked to -1e30."""
-    h = ll.rms_norm(h, params["final_norm"])
+    """Final norm + vocab projection (over ``logits_scaling``); padded vocab
+    entries are masked to -1e30."""
+    h = ll.rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     w = gather_fsdp(params["embed"]).T if _tied(cfg) else gather_fsdp(params["unembed"])
     logits = (h @ w.to(h.dtype)).float()
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad_mask, -1e30)
@@ -345,7 +369,15 @@ def forward(params, cfg: ArchConfig, inputs: torch.Tensor,
     computes logits for the final position only (serving prefill: avoids the
     (B, S, V) logit tensor entirely). aux_loss is the MoE balance loss summed
     over the MoE layers (0 for the other families). ``opts.remat`` "full"
-    or "offload" checkpoints each layer body, as the reference does."""
+    or "offload" checkpoints each layer body, as the reference does. The call
+    is one ``forward`` span (``repro_torch.spans``; a null context while
+    nothing records)."""
+    with spans.span("forward"):
+        return _forward(params, cfg, inputs, opts, collect_kv, last_only)
+
+
+def _forward(params, cfg: ArchConfig, inputs, opts: ModelOptions, collect_kv: bool,
+             last_only: bool):
     h = embed_inputs(params, cfg, inputs)
     caches: Dict[str, Any] = {}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -353,6 +385,8 @@ def forward(params, cfg: ArchConfig, inputs: torch.Tensor,
         h, caches = _ssm_forward(params, cfg, h, opts, collect_kv)
     elif cfg.family == "hybrid":
         h, caches = _hybrid_forward(params, cfg, h, opts, collect_kv)
+    elif cfg.family == "hybrid_moe":
+        h, aux, caches = _hybrid_moe_forward(params, cfg, h, opts, collect_kv)
     else:
         run = _layer_runner(opts, h.device)
         L1 = _first_dense(cfg)
@@ -426,6 +460,62 @@ def _hybrid_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: 
     return h, caches
 
 
+def _hybrid_moe_forward(params, cfg: ArchConfig, h, opts: ModelOptions, collect_kv: bool):
+    """Granite-4.0-H: in each layer ``h += r * mixer(norm(h))``, the mixer Mamba2
+    or, in ``cfg.attention_layers``, causal GQA attention (no RoPE where
+    ``use_rope`` is off, scores times ``attention_multiplier``); then
+    ``h += r * (moe(x) + shared(x))`` with ``x = norm(h)``, r the
+    ``residual_multiplier``. Spans ``forward.mamba``, ``forward.attention`` and
+    ``forward.moe``. Returns (h, aux, caches): caches {"kv": the attention
+    layers' (K, V) stacked in order, "mamba": {"conv", "ssd"} stacked over the
+    Mamba2 layers} when collect_kv."""
+    L, attn_at = cfg.num_layers, set(cfg.attention_layers)
+    n_attn = len(attn_at)
+    mamba_layers = iter(_layers(params["mamba"], L - n_attn))
+    attn_layers = iter(_layers(params["attn"], n_attn))
+    state = m2.mamba2_init_state(cfg, h.shape[0], h.dtype, h.device)
+    run = _layer_runner(opts, h.device)
+    r, eps = cfg.residual_multiplier, cfg.rms_norm_eps
+    theta = cfg.rope_theta if cfg.use_rope else None
+    scale = cfg.attention_multiplier or None
+
+    def body(p, mixer, is_attn, hh):
+        p, mixer = gather_fsdp(p), gather_fsdp(mixer)
+        x = ll.rms_norm(hh, p["ln1"], eps)
+        kv = st = None
+        if is_attn:
+            with spans.span("forward.attention"):
+                out, kv = attn.full_attention(mixer, x, window=int(BIG_WINDOW), causal=True,
+                                              theta=theta, qk_norm=cfg.qk_norm,
+                                              attn_impl=opts.attn_impl, scale=scale)
+        else:
+            with spans.span("forward.mamba"):
+                out, st = m2.mamba2_block(mixer, x, state, cfg, impl=opts.ssd_impl, eps=eps)
+        hh = hh + out * r
+        with spans.span("forward.moe"):
+            f_out, a = moe_lib.moe_layer(p["moe"], ll.rms_norm(hh, p["ln2"], eps), cfg,
+                                         impl=opts.moe_impl)
+        return hh + f_out * r, a, kv, st
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    states, ks, vs = [], [], []
+    for i, p in enumerate(_layers(params["stack"], L)):
+        is_attn = i in attn_at
+        mixer = next(attn_layers if is_attn else mamba_layers)
+        h, a, kv, st = run(lambda hh, p=p, m=mixer, a=is_attn: body(p, m, a, hh), h)
+        aux = aux + a
+        if collect_kv:
+            if is_attn:
+                ks.append(kv[0])
+                vs.append(kv[1])
+            else:
+                states.append(st)
+    caches: Dict[str, Any] = {}
+    if collect_kv:
+        caches = {"kv": (torch.stack(ks), torch.stack(vs)), "mamba": _stack_states(states)}
+    return h, aux, caches
+
+
 # ------------------------------------------------------------------------- loss
 def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             opts: ModelOptions = ModelOptions()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -464,9 +554,16 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 
 
 # ------------------------------------------------------------------------- decode
+def _refuse_hybrid_moe_decode(cfg: ArchConfig) -> None:
+    if cfg.family == "hybrid_moe":
+        raise NotImplementedError(f"{cfg.name}: cached decode of the hybrid_moe stack is "
+                                  "not built; forward() prefills it")
+
+
 def init_decode_state(params, cfg: ArchConfig, batch: int, max_len: int,
                       dtype=None, sliding_ring: bool = False) -> Dict[str, Any]:
     """Empty caches for decode-from-scratch, on the parameters' device."""
+    _refuse_hybrid_moe_decode(cfg)
     dev = params["final_norm"].device
     dtype = dtype or dtype_of(cfg.dtype)
     K, hd, L = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
@@ -506,6 +603,7 @@ def decode_step(params, cfg: ArchConfig, state: Dict[str, Any], inputs: torch.Te
     the caches of `state` in place, and `new_state` holds those same cache
     tensors (the reference returns new ones); lengths and the Mamba2 and
     RWKV6 states are new tensors."""
+    _refuse_hybrid_moe_decode(cfg)
     h = embed_inputs(params, cfg, inputs)
     lengths = state["lengths"]
     new_state: Dict[str, Any] = {"lengths": lengths + 1}
@@ -610,14 +708,11 @@ def prefill_cache_axes(cfg: ArchConfig) -> Dict[str, Any]:
                 "wkv": ("layers", "batch", "heads", None, None),
             }
         }
-    if cfg.family == "hybrid":
-        return {
-            "mamba": {
-                "conv": ("layers", "batch", None, "heads_merged"),
-                "ssd": ("layers", "batch", "heads", None, "state"),
-            },
-            "shared_kv": (kv_ax, kv_ax),
-        }
+    if cfg.family in ("hybrid", "hybrid_moe"):
+        mamba = {"conv": ("layers", "batch", None, "heads_merged"),
+                 "ssd": ("layers", "batch", "heads", None, "state")}
+        key = "shared_kv" if cfg.family == "hybrid" else "kv"
+        return {"mamba": mamba, key: (kv_ax, kv_ax)}
     ax: Dict[str, Any] = {"kv": (kv_ax, kv_ax)}
     if cfg.moe and cfg.moe_first_dense:
         ax["dense_kv"] = (kv_ax, kv_ax)

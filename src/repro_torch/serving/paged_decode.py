@@ -38,8 +38,9 @@ def paged_decode_step(
     Unlike the reference, whose ``lax.scan`` donates the pools and returns new
     ones, this writes the new token's K/V into ``k_pool``/``v_pool`` in place
     and returns the same tensors, so the engine's call site reads the same."""
-    # The reference's two asserts, with its wording.
-    if cfg.family in ("ssm", "hybrid"):
+    # The reference's two asserts, with its wording (hybrid_moe has no
+    # counterpart there: its Mamba2 state has no place in the paged pools).
+    if cfg.family in ("ssm", "hybrid", "hybrid_moe"):
         raise NotImplementedError("paged decode is for attention archs")
     if cfg.moe and cfg.moe_first_dense:
         raise NotImplementedError("use uniform stacks for paged demo")

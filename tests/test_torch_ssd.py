@@ -211,6 +211,18 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
         ssd(*arrays, impl="xla")
 
 
+def test_kernel_widths():
+    """Head dims P up to 64 and states N up to 128, multiples of 4: granite-4.0-h's
+    P 64, N 128 and zamba2's 64, 64 pass; P 80, N 132 and widths no multiple
+    of 4 are refused before any launch."""
+    for P, N in ((64, 128), (64, 64), (4, 4), (8, 124)):
+        kernel_mod.check_widths(P, N)
+    for P, N, what in ((80, 16, "P=80"), (64, 132, "N=132"), (6, 16, "P=6"), (8, 130, "N=130"),
+                       (128, 64, "P=128")):
+        with pytest.raises(ValueError, match=what):
+            kernel_mod.check_widths(P, N)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SWEEP, ids=lambda s: "B{}T{}H{}P{}N{}".format(*s))
 def test_cuda_kernel_matches_plain(shape):
@@ -256,9 +268,27 @@ def test_cuda_kernel_matches_plain_on_the_path_shape():
     torch.testing.assert_close(h, h_ref, atol=ATOL, rtol=0)
 
 
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_on_granites_shape():
+    """granite-4.0-h-small's heads (H 128, P 64, N 128) at chunk 32, bf16 x/B/C,
+    one prompt of 4096 tokens: the kernel built for states up to 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, dt, A, Bm, C, D, h0 = (t.cuda() for t in _both(make_inputs(1, 4096, 128, 64, 128, seed=9)))
+    x, Bm, C = (t.to(torch.bfloat16) for t in (x, Bm, C))
+    y, h = ssd(x, dt, A, Bm, C, D, h0, impl="pallas")
+    y_ref, h_ref = _ssd_chunked(x, dt, A, Bm, C, D, h0, chunk=32)
+    torch.testing.assert_close(y, y_ref, atol=ATOL, rtol=0)
+    torch.testing.assert_close(h, h_ref, atol=ATOL, rtol=0)
+
+
 EDGES = [((1, 1, 2, 8, 8), 16), ((1, 1, 2, 8, 8), 32), ((2, 16, 3, 16, 8), 16),
          ((2, 32, 3, 8, 16), 32), ((1, 33, 2, 64, 64), 32), ((2, 45, 2, 24, 40), 16),
-         ((1, 77, 5, 64, 8), 32), ((1, 70, 2, 8, 64), 16), ((2, 130, 4, 32, 32), 32)]
+         ((1, 77, 5, 64, 8), 32), ((1, 70, 2, 8, 64), 16), ((2, 130, 4, 32, 32), 32),
+         # states past 64: the instantiation for N <= 128, its tiles half idle
+         # (N 68, 100), whole (128), with P from 8 to 64 and ragged T
+         ((1, 1, 2, 8, 128), 32), ((1, 33, 3, 64, 128), 32), ((2, 45, 2, 24, 100), 16),
+         ((1, 77, 5, 64, 68), 32), ((2, 130, 4, 16, 128), 16)]
 
 
 @pytest.mark.cuda
@@ -267,8 +297,9 @@ EDGES = [((1, 1, 2, 8, 8), 16), ((1, 1, 2, 8, 8), 32), ((2, 16, 3, 16, 8), 16),
                          ids=lambda v: "B{}T{}H{}P{}N{}".format(*v) if isinstance(v, tuple) else f"c{v}")
 def test_cuda_kernel_matches_plain_at_its_edges(shape, chunk, dtype):
     """The three passes' edges: T = 1, one whole chunk, one chunk and a
-    position, ragged T; both compiled chunks; P and N from 8 to 64, tiles of
-    pass 1 and 3 left idle (P, N < 64) and widths no multiple of 8. Against
+    position, ragged T; both compiled chunks; P from 8 to 64 and N from 8 to
+    128, both instantiations (N <= 64, N <= 128), tiles of pass 1 and 3 left
+    idle and widths no multiple of 8. Against
     the step-by-step oracle on the same (rounded) inputs, at 5e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -294,6 +325,9 @@ def test_cuda_kernel_wrapper_rejects_what_it_cannot_take():
     wide = torch.zeros((1, 20, 2, 80), device="cuda")
     with pytest.raises(ValueError, match="P=80"):
         kernel_mod.ssd_pallas(wide, dt, A, Bm, C, D, torch.zeros((1, 2, 80, 16), device="cuda"))
+    deep = torch.zeros((1, 20, 132), device="cuda")
+    with pytest.raises(ValueError, match="N=132"):
+        kernel_mod.ssd_pallas(x, dt, A, deep, deep, D, torch.zeros((1, 2, 8, 132), device="cuda"))
     odd = torch.zeros((1, 20, 2, 6), device="cuda")
     with pytest.raises(ValueError, match="P=6"):
         kernel_mod.ssd_pallas(odd, dt, A, Bm, C, D, torch.zeros((1, 2, 6, 16), device="cuda"))
