@@ -566,18 +566,23 @@ def profile_steps(eng, args, n_steps: int = 20) -> None:
     profiled(steps, f"{n_steps} steps")
 
 
-def main_path(ops, ref, arch: str = "gemma3-1b"):
+def main_path(ops, ref, arch: str = "gemma3-1b", widths: int = 0):
     """Serve `arch` at full width through ``repro_torch.launch.serve``: 3
-    requests of 24 + 16 tokens, page 8, 10 hot slots, max_batch 2, Policy1.
-    Returns the paged kernel's launches."""
+    requests of 24 + 16 tokens, page 8, 10 hot slots, max_batch 2, Policy1,
+    under the profiler. Returns the paged kernel's runs on the card that the
+    profiler counted (a graph replay runs it without a host launch). With
+    `widths`, then ``decode_graph_widths`` up to that batch width."""
     phase(f"main path: {arch} full width, tiered paged KV")
     from repro_torch.core import emucxl
     from repro_torch.launch import serve
     import repro_torch.serving.engine as engine_mod
     import repro_torch.serving.paged_decode as pd_mod
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     if emucxl.default_instance()._initialized:   # a fresh pool for each served model
         emucxl.default_instance().exit()
     args = serve.parse_args(["--arch", arch, "--no-reduced", "--requests", "3",
@@ -606,6 +611,9 @@ def main_path(ops, ref, arch: str = "gemma3-1b"):
     engine_mod.paged_decode_step = observed
     peak_remote, remote_recs, step_ms = 0, 0, []
     zero_counts()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
     t_run = time.perf_counter()
     try:
         steps = 0
@@ -623,14 +631,22 @@ def main_path(ops, ref, arch: str = "gemma3-1b"):
                     check(rec.data.is_pinned(), "a REMOTE allocation is not pinned")
     finally:
         engine_mod.paged_decode_step = decode
+        prof.stop()
     wall = time.perf_counter() - t_run
     counts = read_counts()
     launches = counts["paged_attention"]
+    runs = sum(e.device_type == DeviceType.CUDA and "paged_partition_kernel" in e.name
+               for e in prof.events())
+    del prof
     stats = eng.tier_stats()
     generated = sum(len(r.generated) for r in eng.requests.values())
-    print(f"steps {steps}, decode batches {eng.decode_batches}, kernel launches {launches}, "
+    graphs = eng.graphs
+    print(f"steps {steps}, decode batches {eng.decode_batches}, host launches of the kernel "
+          f"{launches}, its runs on the card {runs} (profiler), "
+          f"decode graph captures {graphs.captures}, replays {graphs.replays}, "
           f"preemptions {eng.preemptions}, peak remote bytes {peak_remote}, "
-          f"pinned REMOTE records seen {remote_recs}")
+          f"pinned REMOTE records seen {remote_recs}, "
+          f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"tier stats: {stats}")
     check(all(len(r.generated) == args.max_new for r in eng.requests.values()),
           "a request did not generate all its tokens")
@@ -638,43 +654,122 @@ def main_path(ops, ref, arch: str = "gemma3-1b"):
     check(stats["remote_hits"] > 0, "no page was promoted back from the REMOTE tier")
     check(peak_remote > 0 and remote_recs > 0, "no bytes reached the REMOTE tier")
     check(launches > 0, "the main path never launched the paged_attention kernel")
-    check(launches == eng.decode_batches * cfg.num_layers,
-          f"kernel launches {launches} != decode batches x layers")
+    # a step replays its width's graph, or runs eagerly and captures it (one
+    # host launch a layer each); a replay launches nothing from the host
+    check(graphs.captures + graphs.replays == eng.decode_batches,
+          "a decode step neither captured nor replayed its graph")
+    check(launches == 2 * graphs.captures * cfg.num_layers,
+          f"kernel launches {launches} != 2 x captures x layers")
+    # the profiler sees each run: the warm-up before a capture, and a replay's
+    check(runs == eng.decode_batches * cfg.num_layers,
+          f"the kernel ran {runs} times on the card, not decode batches x layers")
     check(all(n == 0 for name, n in counts.items() if name != "paged_attention"),
           f"the serving path launched a prefill kernel: {counts}")
     check(all(bool(f) for f in finite), "non-finite logits on the main path")
-    print(f"serving: {steps / wall:.2f} steps/s, {generated / wall:.2f} generated tokens/s, "
+    print(f"serving (under the profiler): {steps / wall:.2f} steps/s, "
+          f"{generated / wall:.2f} generated tokens/s, "
           f"median step {statistics.median(step_ms):.2f} ms, wall {wall:.2f} s")
     profile_steps(eng, args)
 
-    # The same decode steps with the kernel and with the plain version, from the same pools.
+    # The same decode steps with the kernel, with the kernel replayed from a
+    # graph (one capture, then replays) and with the plain version, each from
+    # pools of its own.
     B, page, maxp, n_steps = 2, 8, 4, 12
     shape = (cfg.num_layers, B * maxp, page, cfg.num_kv_heads, cfg.resolved_head_dim)
     table = torch.arange(B * maxp, dtype=torch.int32, device="cuda").reshape(B, maxp)
     toks = torch.randint(0, cfg.vocab_size, (B, n_steps), dtype=torch.int32, device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
-    logits = {}
-    for name, attention in (("kernel", ops.paged_attention), ("plain", ref.paged_attention_ref)):
+    logits, cache = {}, pd_mod.DecodeGraphs()
+    arms = (("kernel", ops.paged_attention, None), ("graph", ops.paged_attention, cache),
+            ("plain", ref.paged_attention_ref, None))
+    for name, attention, arm_graphs in arms:
         k_pool = torch.zeros(shape, device="cuda")
         v_pool = torch.zeros(shape, device="cuda")
         pd_mod.paged_attention = attention
-        try:
+        try:   # a replay's logits are the graph's buffer: copied before the next step
             logits[name] = [
                 pd_mod.paged_decode_step(eng.params, cfg, k_pool, v_pool, table,
                                          torch.full((B,), t, dtype=torch.int32, device="cuda"),
-                                         toks[:, t : t + 1], eng.opts)[0]
+                                         toks[:, t : t + 1], eng.opts, graphs=arm_graphs)[0].clone()
                 for t in range(n_steps)]
         finally:
             pd_mod.paged_attention = ops.paged_attention
-    diff = max((a - b).abs().max().item() for a, b in zip(logits["kernel"], logits["plain"],
-                                                          strict=True))
-    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in
-                zip(logits["kernel"], logits["plain"], strict=True)) / (B * n_steps)
+
+    def gap(a, b):
+        diff = max((x - y).abs().max().item() for x, y in zip(logits[a], logits[b], strict=True))
+        agree = sum(int((x.argmax(-1) == y.argmax(-1)).sum()) for x, y in
+                    zip(logits[a], logits[b], strict=True)) / (B * n_steps)
+        return diff, agree
+
     check(all(bool(torch.isfinite(x).all()) for x in logits["kernel"]), "non-finite logits")
-    print(f"decode {n_steps} steps x B{B}, kernel vs plain attention: max |logit diff| "
-          f"{diff:.4e}, argmax agreement {agree:.3f}")
+    check((cache.captures, cache.replays) == (1, n_steps - 1),
+          f"the graph arm captured {cache.captures} and replayed {cache.replays}")
+    for a, b in (("kernel", "plain"), ("graph", "plain"), ("graph", "kernel")):
+        diff, agree = gap(a, b)
+        print(f"decode {n_steps} steps x B{B}, {a} vs {b} attention: max |logit diff| "
+              f"{diff:.4e}, argmax agreement {agree:.3f}")
+    diff, agree = gap("graph", "kernel")
+    top = max(x.abs().max().item() for x in logits["kernel"])
+    check(diff <= 1e-5 * top and agree == 1.0,
+          f"the replayed step's logits differ from the eager step's by {diff:.4e}")
+    print(f"graph arm: {cache.captures} capture, {cache.replays} replays")
+    if widths:
+        decode_graph_widths(eng, widths)
     del eng
-    return launches
+    return runs
+
+
+def decode_graph_widths(eng, widths: int, page: int = 16, max_pages: int = 118) -> None:
+    """What the decode graphs cost where the batch width varies: one
+    ``DecodeGraphs`` over `eng`'s weights takes every width from 1 to
+    `widths` (a table of `max_pages` pages of `page` tokens, as the serving
+    cell's; one page a row, 8 tokens long), then replays each. Prints the
+    host time of each first call (the eager step and the capture), of a
+    replay, and the device memory the graphs hold."""
+    phase(f"decode graphs: widths 1..{widths}, {eng.cfg.name}")
+    import repro_torch.serving.paged_decode as pd_mod
+
+    cfg = eng.cfg
+    shape = (cfg.num_layers, widths + 1, page, cfg.num_kv_heads, cfg.resolved_head_dim)
+    k_pool = torch.zeros(shape, device="cuda")
+    v_pool = torch.zeros(shape, device="cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    cache, first_ms, replay_ms = pd_mod.DecodeGraphs(), [], []
+
+    def call(B):
+        table = torch.zeros((B, max_pages), dtype=torch.int32, device="cuda")
+        table[:, 0] = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+        lengths = torch.full((B,), 8, dtype=torch.int32, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (B, 1), dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd_mod.paged_decode_step(eng.params, cfg, k_pool, v_pool, table, lengths, toks,
+                                 eng.opts, graphs=cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for B in range(1, widths + 1):
+        first_ms.append(call(B))
+    held = torch.cuda.memory_allocated() - base[0], torch.cuda.memory_reserved() - base[1]
+    for B in range(1, widths + 1):
+        replay_ms.append(call(B))
+    check((cache.captures, cache.replays) == (widths, widths),
+          f"{cache.captures} captures and {cache.replays} replays over {widths} widths")
+    print(f"{widths} widths: first call (eager step + capture) median "
+          f"{statistics.median(first_ms):.1f} ms, max {max(first_ms):.1f} ms, total "
+          f"{sum(first_ms) / 1e3:.2f} s; replay (synchronized) median "
+          f"{statistics.median(replay_ms):.2f} ms, B1 {replay_ms[0]:.2f} ms, "
+          f"B{widths} {replay_ms[-1]:.2f} ms")
+    print(f"graphs hold {held[0] / 2**20:.1f} MiB allocated, {held[1] / 2**20:.1f} MiB "
+          f"reserved ({held[1] / widths / 2**20:.1f} MiB reserved a width); "
+          f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for B in (1, 2, 8, 32, 64, widths):
+        if B <= widths:
+            print(f"  B{B}: first call {first_ms[B - 1]:.1f} ms, replay {replay_ms[B - 1]:.2f} ms")
+    del cache, k_pool, v_pool
 
 
 # ------------------------------------------------------------------ prefill kernels
@@ -2140,7 +2235,7 @@ def main() -> int:
     zamba = prefill_path("zamba2-1.2b", {"flash_attention": 6, "mamba2_ssd": 38})["launches"]
     rwkv = prefill_path("rwkv6-3b", {"wkv6": 32})["launches"]
     olmoe = prefill_path("olmoe-1b-7b", {"flash_attention": 16})["launches"]
-    olmoe_launches = main_path(ops, ref, "olmoe-1b-7b")
+    olmoe_launches = main_path(ops, ref, "olmoe-1b-7b", widths=128)
     training, ckdir = train_path()
     multi_device_path(training, ckdir, smi)
     one_card = every_config_one_card_holds(ops, ref, smi)

@@ -11,7 +11,8 @@ fast path is an optimization hook, not a correctness need).
 
 The port of ``repro/serving/engine.py``: pools and parameters live on the
 engine's device (the card by default); each step copies the batch's block
-tables, lengths and tokens to the device and the B sampled token ids back.
+tables, lengths and tokens to the device and the B sampled token ids back,
+and on the card replays the decode step's CUDA graph for the batch's width.
 While a profiler runs (or after ``spans.enable()``) each step records an
 ``engine.step`` span and one span a layer of its work (``repro_torch.spans``).
 """
@@ -30,7 +31,7 @@ from repro_torch.core.api import CXLSession
 from repro_torch.core.policy import PromotionPolicy
 from repro_torch.models import transformer as tf
 from repro_torch.serving.kv_manager import PagedKVPool, SharedPrefixKV
-from repro_torch.serving.paged_decode import paged_decode_step
+from repro_torch.serving.paged_decode import DecodeGraphs, paged_decode_step
 
 
 @dataclasses.dataclass
@@ -84,6 +85,8 @@ class ServingEngine:
         self._next_rid = 0
         self.preemptions = 0
         self.decode_batches = 0      # paged_decode_step calls (one per decode step)
+        # the decode step's CUDA graphs, one per batch width (pools on the card)
+        self.graphs = DecodeGraphs()
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt: List[int], max_new_tokens: int = 16) -> int:
@@ -183,7 +186,7 @@ class ServingEngine:
                     self.pool.touch(r.rid, p)
         logits, self.pool.k_pool, self.pool.v_pool = paged_decode_step(
             self.params, self.cfg, self.pool.k_pool, self.pool.v_pool,
-            tables, lengths, tokens, self.opts,
+            tables, lengths, tokens, self.opts, graphs=self.graphs,
         )
         self.decode_batches += 1
         with spans.span("engine.sample"):

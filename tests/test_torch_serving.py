@@ -6,21 +6,36 @@ Tolerances: layer functions agree to 1e-5 in fp32; decode logits to 1e-3 over
 Generated token ids, tier statistics and modeled times must be equal.
 The preemption scenario also runs under the CPU profiler, where the port's
 spans (``repro_torch.spans``) record each step's layers and tier moves.
+
+The decode step's CUDA graphs (``paged_decode.DecodeGraphs``): on the CPU the
+cache stays off and the step is the eager one bit for bit; on the card
+(``cuda`` marker) an engine that replays them serves what the eager step
+serves. JAX is imported only for the reference comparisons, so the card's
+machine, which has no JAX, runs the ``cuda`` cases of this file.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-import _torch_parity as tp  # noqa: E402
-import repro.models.layers as r_layers  # noqa: E402
-import repro.models.transformer as r_tf  # noqa: E402
-import repro.serving.paged_decode as r_pd  # noqa: E402
+try:  # the reference side; absent on the card's machine
+    import jax
+    import jax.numpy as jnp
+
+    import _torch_parity as tp
+    import repro.models.layers as r_layers
+    import repro.models.transformer as r_tf
+    import repro.serving.paged_decode as r_pd
+except ImportError:
+    jax = None
+
+import repro_torch.configs as t_configs  # noqa: E402
+import repro_torch.core.emucxl as t_emucxl  # noqa: E402
+import repro_torch.core.policy as t_policy  # noqa: E402
 import repro_torch.models.layers as t_layers  # noqa: E402
 import repro_torch.models.transformer as t_tf  # noqa: E402
 import repro_torch.serving.engine as t_engine  # noqa: E402
@@ -28,6 +43,7 @@ import repro_torch.serving.kv_manager as t_kv  # noqa: E402
 import repro_torch.serving.paged_decode as t_pd  # noqa: E402
 from repro_torch import spans  # noqa: E402
 from repro_torch.interop import from_reference  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_attention as paged_mod  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +150,200 @@ def test_paged_decode_matches_reference(model):
                                                torch.from_numpy(lengths), torch.from_numpy(tok))
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-3)
     np.testing.assert_allclose(k_t.numpy(), np.asarray(k_r), atol=1e-4)
+
+
+# ------------------------------------------------------------------ decode graphs
+def _port_model(arch, device):
+    """A reduced `arch` drawn by the port itself (no reference needed)."""
+    cfg = t_configs.get_config(arch).reduced()
+    gen = torch.Generator(device=device).manual_seed(0)
+    return cfg, t_tf.init_params(gen, cfg, device=device)
+
+
+def _record_decodes(monkeypatch, eager):
+    """Wrap the engine's decode call as the benchmark's traced runs do
+    (reading ``args[5]``); each call's lengths, batch width, keywords and a copy of its
+    logits. `eager` drops ``graphs=``, so the step is ``_decode_body``'s."""
+    calls = []
+    decode = t_engine.paged_decode_step
+
+    def wrapper(*args, **kw):
+        seen = dict(kw)
+        if eager:
+            kw.pop("graphs")
+        logits, k_pool, v_pool = decode(*args, **kw)
+        calls.append({"lengths": args[5].tolist(), "width": args[6].shape[0], "kw": seen,
+                      "logits": logits.clone()})
+        return logits, k_pool, v_pool
+
+    monkeypatch.setattr(t_engine, "paged_decode_step", wrapper)
+    return calls
+
+
+def _serve(monkeypatch, arch, device, *, eager=False, policy="Policy1", max_batch=2,
+           slots=4, prompts=((5, 6),) * 3, params=None):
+    """tests/test_serving.py's engine scenario on `device`: page 8, 2 pages a
+    sequence, requests of (prompt length, new tokens) drawn from seed 5,
+    recorded with spans on. Returns the engine, its tokens and decode calls,
+    and the records."""
+    cfg, drawn = _port_model(arch, device)
+    lib = t_emucxl.EmuCXL()
+    lib.init(local_capacity=1 << 26, remote_capacity=1 << 28, device=device)
+    eng = t_engine.ServingEngine(params or drawn, cfg, num_slots=slots, page_size=8,
+                                 max_batch=max_batch, max_pages_per_seq=2,
+                                 policy=getattr(t_policy, policy)(), device=device)
+    eng.pool.lib = lib
+    eng.pool.slab.lib = lib
+    rng = np.random.default_rng(5)
+    for n, new in prompts:
+        eng.submit(list(rng.integers(0, cfg.vocab_size, n)), max_new_tokens=new)
+    calls = _record_decodes(monkeypatch, eager)
+    spans.clear()
+    spans.enable()
+    try:
+        tokens = eng.run(max_steps=200)
+    finally:
+        spans.disable()
+        monkeypatch.undo()
+    stats = eng.tier_stats()
+    lib.exit()
+    return SimpleNamespace(eng=eng, tokens=tokens, stats=stats, calls=calls,
+                           records=spans.records())
+
+
+def _graph_counts(records, name):
+    """graph_captures and graph_replays summed over the spans named `name`."""
+    return [sum(r["attrs"].get(k, 0) for r in records if r["name"] == name)
+            for k in ("graph_captures", "graph_replays")]
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "olmoe-1b-7b"])
+def test_decode_graphs_stay_off_for_cpu_pools(arch):
+    """CPU pools: the cache never captures or replays, counts nothing on the
+    spans, and the step's logits and pools are bitwise the eager step's; for
+    olmoe with its dense MoE, as the engine serves it."""
+    cfg, params = _port_model(arch, "cpu")
+    opts = t_tf.ModelOptions(moe_impl="dense")
+    B, page, maxp = 2, 8, 4
+    shape = (cfg.num_layers, 2 * B * maxp, page, cfg.num_kv_heads, cfg.resolved_head_dim)
+    pools = {name: (torch.zeros(shape), torch.zeros(shape)) for name in ("graphs", "eager")}
+    table = torch.arange(B * maxp, dtype=torch.int32).reshape(B, maxp)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (B, 12))
+                            .astype(np.int32))
+    cache = t_pd.DecodeGraphs()
+    spans.clear()
+    spans.enable()
+    try:
+        for t in range(12):
+            lengths = torch.full((B,), t, dtype=torch.int32)
+            out = {name: t_pd.paged_decode_step(params, cfg, *pools[name], table, lengths,
+                                                toks[:, t:t + 1], opts,
+                                                graphs=cache if name == "graphs" else None)[0]
+                   for name in pools}
+            assert torch.equal(out["graphs"], out["eager"])
+    finally:
+        spans.disable()
+    assert all(torch.equal(a, b) for a, b in zip(pools["graphs"], pools["eager"]))
+    assert (cache.captures, cache.replays) == (0, 0)
+    recs = spans.records()
+    assert sum(r["name"] == "decode.dispatch" for r in recs) == 24
+    assert _graph_counts(recs, "decode.dispatch") == [0, 0]
+
+
+def test_a_wrapper_of_the_engines_decode_call_reads_its_arguments(monkeypatch):
+    """The benchmark's traced runs and chip_smoke wrap the module-level
+    ``paged_decode_step`` and read the lengths as ``args[5]``: the engine
+    still passes them there, and its graph cache by keyword. On the CPU the
+    engine's cache stays off."""
+    run = _serve(monkeypatch, "gemma3-1b", "cpu", max_batch=2, slots=8,
+                 prompts=((3, 4), (3, 4)))
+    assert [c["lengths"] for c in run.calls] == [[t, t] for t in range(6)]
+    assert all(c["kw"] == {"graphs": run.eng.graphs} for c in run.calls)
+    assert (run.eng.graphs.captures, run.eng.graphs.replays) == (0, 0)
+    assert all(len(v) == 4 for v in run.tokens.values())
+
+
+GRAPH_RUNS = {  # the scenario, and the widths' count it must capture
+    # olmoe's MoE stack, dense as the engine serves it; two widths
+    "widths": (dict(arch="olmoe-1b-7b", max_batch=2, slots=8, prompts=((5, 3), (5, 9))), 2),
+    # a sliding window (8) in layer 0; preemptions, demotes and promotes between replays
+    "eviction": (dict(arch="gemma3-1b", max_batch=2, slots=4, prompts=((5, 6),) * 3), 2),
+    # Policy2's read-through: every page promoted for one step and demoted after it
+    "policy2": (dict(arch="gemma3-1b", policy="Policy2", max_batch=1, slots=4,
+                     prompts=((5, 5),) * 3), 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", sorted(GRAPH_RUNS))
+def test_engine_graph_replays_serve_the_eager_steps(scenario, monkeypatch):
+    """On the card, the same engine run with the decode graphs and through
+    ``_decode_body`` alone: equal token ids and tier statistics, logits equal
+    within 1e-5 of each step's largest with the same argmax; one capture a
+    width, a replay every other step, counted on ``decode.dispatch`` and up to
+    ``engine.step``; the paged kernel launched from the host only to warm up
+    and capture (its replays run inside the graph)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw, widths = GRAPH_RUNS[scenario]
+    before = paged_mod.launches
+    graphs = _serve(monkeypatch, device="cuda", **kw)
+    launched = paged_mod.launches - before
+    eager = _serve(monkeypatch, device="cuda", eager=True, params=graphs.eng.params, **kw)
+    assert graphs.tokens == eager.tokens
+    assert graphs.stats == eager.stats
+    if scenario != "widths":
+        assert graphs.stats["preemptions"] > 0 and graphs.stats["remote_hits"] > 0
+    assert [c["lengths"] for c in graphs.calls] == [c["lengths"] for c in eager.calls]
+    for a, b in zip(graphs.calls, eager.calls, strict=True):
+        gap = (a["logits"] - b["logits"]).abs().max().item()
+        assert gap <= 1e-5 * b["logits"].abs().max().item()
+        assert torch.equal(a["logits"].argmax(-1), b["logits"].argmax(-1))
+    cache, steps = graphs.eng.graphs, len(graphs.calls)
+    assert len({c["width"] for c in graphs.calls}) == widths
+    assert (cache.captures, cache.replays) == (widths, steps - widths)
+    for name in ("decode.dispatch", "engine.step"):
+        assert _graph_counts(graphs.records, name) == [widths, steps - widths]
+    assert _graph_counts(eager.records, "decode.dispatch") == [0, 0]
+    cfg = graphs.eng.cfg
+    assert launched == 2 * widths * cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_decode_graphs_capture_anew_for_other_pools():
+    """On the card a graph reads the pools in place: a step whose pools lie
+    at other addresses captures its width's graph again, in place of the old
+    one, and its replays serve those pools as the eager step does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg, params = _port_model("gemma3-1b", "cuda")
+    B, page, maxp, steps = 2, 8, 4, 4
+    shape = (cfg.num_layers, B * maxp, page, cfg.num_kv_heads, cfg.resolved_head_dim)
+    table = torch.arange(B * maxp, dtype=torch.int32, device="cuda").reshape(B, maxp)
+    toks = torch.randint(0, cfg.vocab_size, (B, steps), dtype=torch.int32, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(3))
+
+    def run(graphs):
+        pools = [torch.zeros(shape, device="cuda") for _ in range(2)]
+        logits = [t_pd.paged_decode_step(params, cfg, *pools, table,
+                                         torch.full((B,), t, dtype=torch.int32, device="cuda"),
+                                         toks[:, t:t + 1], graphs=graphs)[0].clone()
+                  for t in range(steps)]
+        return logits, pools
+
+    cache = t_pd.DecodeGraphs()
+    first = run(cache)
+    assert (cache.captures, cache.replays) == (1, steps - 1)
+    second = run(cache)       # the first pools still held: the second lie elsewhere
+    assert (cache.captures, cache.replays) == (2, 2 * (steps - 1))
+    assert len(cache._graphs) == 1
+    eager = run(None)
+    for got in (first, second):
+        for a, b in zip(got[0], eager[0], strict=True):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+            assert torch.equal(a.argmax(-1), b.argmax(-1))
+        for a, b in zip(got[1], eager[1], strict=True):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
 
 
 # ------------------------------------------------------------------ paged KV pool
