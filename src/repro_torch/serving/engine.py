@@ -81,7 +81,8 @@ class ServingEngine:
         # pooled copy fleet-wide) instead of prefilling them.
         if shared_prefix is not None:
             self.pool.attach_shared_prefix(shared_prefix)
-        self.requests: Dict[int, Request] = {}
+        self.requests: Dict[int, Request] = {}     # every request submitted
+        self._live: Dict[int, Request] = {}        # those not finished, in rid order
         self._next_rid = 0
         self.preemptions = 0
         self.decode_batches = 0      # paged_decode_step calls (one per decode step)
@@ -92,14 +93,12 @@ class ServingEngine:
     def submit(self, prompt: List[int], max_new_tokens: int = 16) -> int:
         rid = self._next_rid
         self._next_rid += 1
-        self.requests[rid] = Request(rid, list(prompt), max_new_tokens)
+        self.requests[rid] = self._live[rid] = Request(rid, list(prompt), max_new_tokens)
         return rid
 
     def run(self, max_steps: int = 1000) -> Dict[int, List[int]]:
         steps = 0
-        while steps < max_steps and any(
-            r.state != "finished" for r in self.requests.values()
-        ):
+        while steps < max_steps and self._live:
             self.step()
             steps += 1
         return {r.rid: r.generated for r in self.requests.values()}
@@ -108,7 +107,7 @@ class ServingEngine:
     def step(self) -> None:
         with spans.span("engine.step") as s:
             self._admit()
-            running = [r for r in self.requests.values() if r.state == "running"]
+            running = [r for r in self._live.values() if r.state == "running"]
             batch = running[: self.max_batch]
             s.set(batch=len(batch))
             if batch:
@@ -120,7 +119,7 @@ class ServingEngine:
 
     def _admit(self) -> None:
         with spans.span("engine.admit"):
-            for r in sorted(self.requests.values(), key=lambda x: x.rid):
+            for r in list(self._live.values()):     # a snapshot: evictions change states
                 if r.state not in ("queued", "preempted"):
                     continue
                 need = self._pages_needed(r)
@@ -158,11 +157,10 @@ class ServingEngine:
 
     def _evict_someone(self, beneficiary: Request) -> bool:
         """Preempt the LRU running request (demote all its pages)."""
-        running = [r for r in self.requests.values()
-                   if r.state == "running" and r.rid != beneficiary.rid]
-        if not running:
+        victim = next((r for r in self._live.values()
+                       if r.state == "running" and r.rid != beneficiary.rid), None)
+        if victim is None:
             return False
-        victim = running[0]
         for p in range(self._pages_needed(victim)):
             self.pool.demote(victim.rid, p)
         victim.state = "preempted"
@@ -184,7 +182,7 @@ class ServingEngine:
             for r in batch:
                 for p in range(r.position // self.page_size + 1):
                     self.pool.touch(r.rid, p)
-        logits, self.pool.k_pool, self.pool.v_pool = paged_decode_step(
+        logits, _, _ = paged_decode_step(     # it writes the pools in place
             self.params, self.cfg, self.pool.k_pool, self.pool.v_pool,
             tables, lengths, tokens, self.opts, graphs=self.graphs,
         )
@@ -202,6 +200,7 @@ class ServingEngine:
                     if (len(r.generated) >= r.max_new_tokens
                             or r.position >= self.max_pages * self.page_size - 1):
                         r.state = "finished"
+                        del self._live[r.rid]
                         self.pool.free_sequence(r.rid)
                 if r.state == "running" and r.read_through:
                     # Policy2: give the hot slots back immediately (next step re-DMAs)

@@ -138,7 +138,7 @@ class SharedPrefixKV:
             )
         buf = self.attach(pool.host)
         for p in range(self.num_pages):
-            ref = pool._refs[(seq_id, p)]
+            ref = pool._ref(seq_id, p)
             if ref.hot_slot is None:
                 raise ecxl.EmuCXLError(
                     f"prefix page {p} of seq {seq_id} is not hot; promote before "
@@ -204,9 +204,8 @@ class PageRef:
 
 
 class _SeqPages:
-    """One sequence's entries of ``PagedKVPool._refs``, by page index, and its
-    block-table row: the hot slot at each page index, 0 where the page is cold
-    or not held."""
+    """One sequence's held pages: their ``PageRef``s by page index, and its
+    block-table row, the hot slot at each page index (0: cold or not held)."""
 
     __slots__ = ("refs", "slots")
 
@@ -224,6 +223,8 @@ class _SeqPages:
 
 class PagedKVPool:
     """Hot (HBM) page pool + cold (emucxl remote) spill, with promotion policies."""
+
+    _NO_PAGES = _SeqPages()      # what a sequence that holds no page reads; never written
 
     def __init__(
         self,
@@ -270,10 +271,8 @@ class PagedKVPool:
         self.policy = policy
         self.stats = AccessStats()
         self.lru = LRUTier(float(num_slots), name="kv-hot")
-        self._refs: Dict[Tuple[int, int], PageRef] = {}
-        # The same entries by sequence, kept with `_refs` wherever a page is
-        # allocated, freed, demoted or promoted: a table, a residency or a
-        # sequence's release reads its own pages, not every held one.
+        # Every held page, by sequence, and only sequences that hold one: a
+        # table, a residency or a sequence's release reads its own pages.
         self._seqs: Dict[int, _SeqPages] = {}
         self.shared_prefix: Optional[SharedPrefixKV] = None
         self.prefix_imports = 0
@@ -285,10 +284,10 @@ class PagedKVPool:
 
     @lib.setter
     def lib(self, value) -> None:
-        if self._refs:
+        if self._seqs:
             raise ecxl.EmuCXLError(
                 f"cannot rebind PagedKVPool to a new backend with "
-                f"{len(self._refs)} live page(s) on the old one"
+                f"{sum(len(s.refs) for s in self._seqs.values())} live page(s) on the old one"
             )
         self.slab.lib = value       # raises first if the slab holds live storage
         self.session = self.slab.session
@@ -308,28 +307,34 @@ class PagedKVPool:
     def free_slots(self) -> int:
         return len(self._free)
 
+    def _ref(self, seq_id: int, page_idx: int) -> PageRef:
+        """The held page (seq, page_idx); KeyError((seq, page_idx)) if none."""
+        ref = self._seqs.get(seq_id, self._NO_PAGES).refs.get(page_idx)
+        if ref is None:
+            raise KeyError((seq_id, page_idx))
+        return ref
+
     # ------------------------------------------------------------------ alloc
     def alloc_page(self, seq_id: int, page_idx: int) -> int:
         """Allocate one hot page (all layers) for (seq, page_idx). PUT semantics."""
         key = (seq_id, page_idx)
-        if key in self._refs:
+        seq = self._seqs.get(seq_id, self._NO_PAGES)
+        if page_idx in seq.refs:
             raise ecxl.EmuCXLError(f"page {key} already allocated")
         if page_idx < 0:
             raise ecxl.EmuCXLError(f"page {key}: a page index is at least 0")
         if not self._free:
             raise ecxl.OutOfTierMemory(0, self._page_bytes(), 0)
         slot = self._free.pop()
-        ref = self._refs[key] = PageRef(seq_id, page_idx, hot_slot=slot)
-        seq = self._seqs.get(seq_id)
-        if seq is None:
+        if seq is self._NO_PAGES:
             seq = self._seqs[seq_id] = _SeqPages()
-        seq.refs[page_idx] = ref
+        seq.refs[page_idx] = PageRef(seq_id, page_idx, hot_slot=slot)
         seq.place(page_idx, slot)
         self.lru.add(key)
         return slot
 
     def free_page(self, seq_id: int, page_idx: int) -> None:
-        ref = self._refs.pop((seq_id, page_idx))
+        ref = self._ref(seq_id, page_idx)
         seq = self._seqs[seq_id]
         del seq.refs[page_idx]
         if seq.refs:
@@ -343,10 +348,8 @@ class PagedKVPool:
             self.slab.free(ref.cold_ptr)
 
     def free_sequence(self, seq_id: int) -> None:
-        seq = self._seqs.get(seq_id)
-        if seq is not None:
-            for page_idx in list(seq.refs):
-                self.free_page(seq_id, page_idx)
+        for page_idx in list(self._seqs.get(seq_id, self._NO_PAGES).refs):
+            self.free_page(seq_id, page_idx)
 
     # ------------------------------------------------------------------ shared prefix
     def attach_shared_prefix(self, shared: SharedPrefixKV) -> None:
@@ -380,7 +383,7 @@ class PagedKVPool:
     # ------------------------------------------------------------------ tiering
     def demote(self, seq_id: int, page_idx: int) -> None:
         """Hot -> cold: DMA the page's bytes into a slab chunk on the remote tier."""
-        ref = self._refs[(seq_id, page_idx)]
+        ref = self._ref(seq_id, page_idx)
         if ref.hot_slot is None:
             return
         with spans.span("kv.demote"):
@@ -396,7 +399,7 @@ class PagedKVPool:
 
     def promote(self, seq_id: int, page_idx: int) -> int:
         """Cold -> hot (Policy1 path). Returns the new hot slot."""
-        ref = self._refs[(seq_id, page_idx)]
+        ref = self._ref(seq_id, page_idx)
         assert ref.cold_ptr is not None
         with spans.span("kv.promote"):
             nbytes = self._page_bytes()
@@ -417,7 +420,7 @@ class PagedKVPool:
 
     def touch(self, seq_id: int, page_idx: int) -> Optional[int]:
         """GET semantics: record hit tier, apply the promotion policy."""
-        ref = self._refs.get((seq_id, page_idx))
+        ref = self._seqs.get(seq_id, self._NO_PAGES).refs.get(page_idx)
         if ref is None:
             self.stats.misses += 1
             return None
@@ -452,9 +455,7 @@ class PagedKVPool:
         return tables
 
     def residency(self, seq_id: int) -> Tuple[int, int]:
-        seq = self._seqs.get(seq_id)
-        if seq is None:
-            return 0, 0
+        seq = self._seqs.get(seq_id, self._NO_PAGES)
         hot = sum(1 for r in seq.refs.values() if r.is_local)
         return hot, len(seq.refs) - hot
 
@@ -462,7 +463,7 @@ class PagedKVPool:
                     position: int) -> None:
         """Write one token's K/V (L, K, hd) into the owning hot page."""
         page_idx, offset = divmod(position, self.page)
-        ref = self._refs[(seq_id, page_idx)]
+        ref = self._ref(seq_id, page_idx)
         if ref.hot_slot is None:
             self.promote(seq_id, page_idx)
         slot = ref.hot_slot

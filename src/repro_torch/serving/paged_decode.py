@@ -123,7 +123,7 @@ def paged_decode_step(
 
     Unlike the reference, whose ``lax.scan`` donates the pools and returns new
     ones, this writes the new token's K/V into ``k_pool``/``v_pool`` in place
-    and returns the same tensors, so the engine's call site reads the same.
+    and returns the same tensors, so its signature is the reference's.
 
     With `graphs` and pools on the card, the step replays the graph of its
     shape (``DecodeGraphs``); the logits are then the graph's output buffer,

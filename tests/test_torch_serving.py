@@ -61,16 +61,16 @@ def preemption(model):
 @pytest.fixture(scope="module")
 def traced(model):
     """The port's preemption run under the CPU profiler: its result, the
-    records, the profiler, and at each ``hot_tables`` call the pages that a
-    walk of ``_refs`` finds for the batch's sequences, beside ``len(_refs)``."""
+    records, the profiler, and at each ``hot_tables`` call the pages the pool
+    holds for the batch's sequences, beside every page it holds."""
     from torch.profiler import ProfilerActivity, profile
 
     walked = []
     orig = t_kv.PagedKVPool.hot_tables
 
     def hot_tables(self, seq_ids, max_pages):
-        held = sum(1 for s in seq_ids for k in self._refs if k[0] == s)
-        walked.append((held, len(self._refs)))
+        pages = _held_pages(self)
+        walked.append((sum(1 for s in seq_ids for k in pages if k[0] == s), len(pages)))
         return orig(self, seq_ids, max_pages)
 
     spans.clear()
@@ -347,6 +347,15 @@ def test_decode_graphs_capture_anew_for_other_pools():
 
 
 # ------------------------------------------------------------------ paged KV pool
+def _held_pages(pool):
+    """The pool's held pages, (sequence, page) -> ``PageRef``, in key order:
+    the reference keeps them in one map, the port in one map a sequence."""
+    if isinstance(pool, t_kv.PagedKVPool):
+        return {(s, p): ref for s, seq in sorted(pool._seqs.items())
+                for p, ref in sorted(seq.refs.items())}
+    return dict(sorted(pool._refs.items()))
+
+
 def _pool_program(P, scenario):
     lib = P.ecxl.EmuCXL()
     lib.init(local_capacity=1 << 24, remote_capacity=1 << 26, **P.lib_kw)
@@ -388,12 +397,13 @@ def _pool_program(P, scenario):
         for _ in range(240):
             op = INTERLEAVED[int(rng.integers(len(INTERLEAVED)))]
             s, p = int(rng.integers(4)), int(rng.integers(6))
-            cold = [k for k, ref in pool._refs.items() if ref.cold_ptr is not None]
-            if op in ("demote", "free_page", "write_token") and pool._refs:
-                s, p = list(pool._refs)[int(rng.integers(len(pool._refs)))]
+            held = _held_pages(pool)
+            cold = [k for k, ref in held.items() if ref.cold_ptr is not None]
+            if op in ("demote", "free_page", "write_token") and held:
+                s, p = list(held)[int(rng.integers(len(held)))]
             elif op == "promote" and cold:
                 s, p = cold[int(rng.integers(len(cold)))]
-            ref = pool._refs.get((s, p))
+            ref = held.get((s, p))
             if op == "alloc_page" and ref is None and pool.free_slots():
                 pool.alloc_page(s, p)
             elif op == "demote" and ref is not None:
@@ -446,45 +456,50 @@ def test_paged_kv_pool_matches(scenario):
         assert max(sum(o) for o in out if isinstance(o, tuple) and isinstance(o[0], int)) > 2
 
 
-def test_page_index_follows_the_refs(model, monkeypatch):
+@pytest.mark.parametrize("run", ["preemption", "policy2"])
+def test_page_index_follows_the_refs(model, monkeypatch, run):
     """After every step of the port's preemption run (allocations, demotes,
-    promotes, releases) and after ``free_sequence`` of every request, each
-    sequence's page index holds the entries a walk of ``_refs`` finds, in
-    their order, with its hot slots; freed sequences hold nothing."""
+    promotes, releases) and of its Policy2 run (read-through requests demoted
+    after each step), each held sequence's block-table row is its own pages'
+    hot slots, 0 where cold; no sequence without a page keeps an entry; and
+    the engine's unfinished requests are those of ``requests`` not finished,
+    in rid order. After ``free_sequence`` of every request nothing is held."""
     engines = []
     step = t_engine.ServingEngine.step
 
     def checked_step(self):
         step(self)
         engines[:] = [self]
-        pool = self.pool
-        by_seq = {}
-        for (s, p), ref in pool._refs.items():
-            by_seq.setdefault(s, {})[p] = ref
-        assert set(pool._seqs) == set(by_seq)
-        for s, refs in by_seq.items():
-            seq = pool._seqs[s]
-            assert list(seq.refs) == list(refs)
-            assert all(seq.refs[p] is ref for p, ref in refs.items())
+        for s, seq in self.pool._seqs.items():
+            assert seq.refs
+            assert all(r.seq_id == s and r.layer_page == p for p, r in seq.refs.items())
             row = np.zeros_like(seq.slots)
-            for p, ref in refs.items():
+            for p, ref in seq.refs.items():
                 row[p] = ref.hot_slot or 0
             np.testing.assert_array_equal(seq.slots, row)
+        live = [r for r in self.requests.values() if r.state != "finished"]
+        assert list(self._live.values()) == live
+        assert list(self._live) == sorted(self._live)
 
     monkeypatch.setattr(t_engine.ServingEngine, "step", checked_step)
-    out = tp.preemption_run(tp.PORT, model[3], model[2])
-    assert out["tier_stats"]["preemptions"] > 0
+    if run == "preemption":
+        out = tp.preemption_run(tp.PORT, model[3], model[2])
+        assert out["tier_stats"]["preemptions"] > 0
+    else:
+        out = tp.policy_run(tp.PORT, model[3], model[2], "Policy2")
+        assert out["tier_stats"]["remote_hits"] > 0
     (eng,) = engines
+    assert eng._live == {}
     for rid in eng.requests:
         eng.pool.free_sequence(rid)
-    assert eng.pool._seqs == {} and eng.pool._refs == {}
+    assert eng.pool._seqs == {}
 
 
 def test_pool_refuses_a_negative_page_index():
     pool = t_kv.PagedKVPool(1, 2, 4, 1, 8, device="cpu")
     with pytest.raises(t_kv.ecxl.EmuCXLError):
         pool.alloc_page(0, -1)
-    assert pool.free_slots() == 2 and pool._refs == {} and pool._seqs == {}
+    assert pool.free_slots() == 2 and pool._seqs == {}
 
 
 # ------------------------------------------------------------------ engine
